@@ -1,0 +1,63 @@
+"""Inverse-rate operand encoding shared by the port's scheduler kernels.
+
+Mirror of ``repro.kernels.invrates``.  Callers pass per-(server, class)
+reciprocal service rates either as the homogeneous ``[3]`` vector or as a
+per-server ``[M, 3]`` matrix; a zero-rate (drained / failed) entry carries
+``+inf``.  ``encode`` splits that operand into lanes a kernel can multiply
+safely:
+
+  cols 0..2   finite reciprocal rates  (non-finite entries -> 0.0)
+  col  3      zero padding
+  cols 4..6   dead flags (1.0 where the reciprocal rate was non-finite)
+  col  7      zero padding
+
+Workloads multiply cols 0..2 (never ``0 * inf = NaN``), and any (server,
+class) whose dead flag is set scores ``+inf`` after the multiply.  The
+plain versions (ref.py) use this encoding; the CUDA kernel applies the
+same rule element by element to the raw ``[3]`` / ``[M, 3]`` operand, so
+a launch needs no encoding pass.
+
+Dispatch rule (``use_kernel``): a tensor on the CPU goes to the plain
+PyTorch version, a tensor on a CUDA device goes to the hand-written CUDA
+kernel.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+CLASSES = 3
+WIDTH = 8          # padded lane width: [rates 0..2 | 0 | flags 4..6 | 0]
+FLAG_BASE = 4
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no route_commit for device {t.device}")
+
+
+def as_matrix(inv_rates: torch.Tensor, M: int) -> torch.Tensor:
+    """Broadcast a ``[3]`` homogeneous vector to ``[M, 3]``; pass ``[M, 3]``
+    through.  Always float32."""
+    inv = inv_rates.to(torch.float32)
+    if inv.ndim == 1:
+        inv = inv[None, :].expand(M, CLASSES)
+    return inv
+
+
+def encode(inv_rates: torch.Tensor, M: int, flags: bool = True) -> torch.Tensor:
+    """Finite [M, 8] encoding of a [3] or [M, 3] inverse-rate operand.
+
+    flags=False leaves cols 4..6 zero (consumers that only need the finite
+    rates and treat dead entries as contributing no workload)."""
+    inv = as_matrix(inv_rates, M)
+    finite = torch.isfinite(inv)
+    enc = torch.zeros((M, WIDTH), dtype=torch.float32, device=inv.device)
+    enc[:, :CLASSES] = torch.where(finite, inv, 0.0)
+    if flags:
+        enc[:, FLAG_BASE:FLAG_BASE + CLASSES] = (~finite).to(torch.float32)
+    return enc

@@ -1,0 +1,141 @@
+"""Plain PyTorch versions of the scheduler kernels (mirror of
+``repro.kernels.ref``).
+
+``route_commit_ref`` is the plain version of the CUDA ``route_commit``
+kernel: the CPU path runs it, and the tests and ``chip_smoke.py`` hold the
+kernel to it.  It is never the card's main path.
+
+Inverse-rate operand: the homogeneous ``[3]`` vector or a per-server
+``[M, 3]`` matrix, ``+inf`` for a dead entry.  Dead entries score ``+inf``
+after the multiply and contribute 0 workload.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .invrates import CLASSES, FLAG_BASE, encode
+
+_INF = float("inf")
+_RANK_BIG = 2**62
+
+
+def _finite_dead(inv_rates: torch.Tensor, M: int):
+    """(finite reciprocal rates [M, 3], dead mask [M, 3]) from the shared
+    encoding (invrates.encode)."""
+    enc = encode(inv_rates, M)
+    return enc[:, :CLASSES], enc[:, FLAG_BASE:FLAG_BASE + CLASSES] > 0
+
+
+def workload(Q: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
+    """W[m] = (Q0*i0 + Q1*i1) + Q2*i2 in float32, in that order (the
+    kernel pins the same order so exact ties break alike)."""
+    x = Q.to(torch.float32) * finite
+    return (x[:, 0] + x[:, 1]) + x[:, 2]
+
+
+def route_commit_ref(Q: torch.Tensor, valid: torch.Tensor,
+                     inv_rates: torch.Tensor, *,
+                     cls: Optional[torch.Tensor] = None,
+                     prio: Optional[torch.Tensor] = None,
+                     cand_idx: Optional[torch.Tensor] = None,
+                     cand_cls: Optional[torch.Tensor] = None,
+                     cand_valid: Optional[torch.Tensor] = None):
+    """Sequential-commit routing of one arrival batch.
+
+    Arrival b scores against ``W0 + dW``, where ``dW`` holds the commits of
+    arrivals ``0..b-1`` (``+inv_rates[sel, cls]`` each, 0 for a dead
+    server).  Exact ties break by locality class, then ``prio`` (full
+    variant, lower wins), then lowest server index (full, ``cls [B, M]``)
+    or lowest candidate slot (pod, ``cand_idx/cand_cls/cand_valid [B, C]``;
+    invalid slots lose every tie).  Arrivals with ``valid[b]`` False get a
+    decision but commit nothing.
+
+    Returns (Q_new [M, 3] int32, W_new [M] f32, sel [B] int32,
+    sel_cls [B] int32, val [B] f32).  Reads ``valid`` on the host: only
+    arrivals up to the last valid one route one by one, the rest score
+    together against the final workloads.
+    """
+    M = Q.shape[0]
+    dev = Q.device
+    finite, dead = _finite_dead(inv_rates, M)
+    W0 = workload(Q, finite)
+    vl = valid.tolist()
+    n_proc = max((b + 1 for b, v in enumerate(vl) if v), default=0)
+    B = len(vl)
+
+    # per-(arrival, slot) class, flat [M, 3] rate index and exact tie rank
+    m = torch.arange(M, device=dev)
+    if cls is not None:
+        idx = None                        # slot j of every row is server j
+        c = cls.to(torch.int64)
+        flat = m * 3 + c.clamp(max=2)
+        p = m if prio is None else prio.to(torch.int64)
+        rank = (c * M + p) * M + m
+    else:
+        idx = cand_idx.to(torch.int64)
+        c = cand_cls.to(torch.int64)
+        v = cand_valid.to(torch.int64)
+        flat = idx * 3 + c.clamp(max=2)
+        C = idx.shape[1]
+        rank = c * C + torch.arange(C, device=dev) + (1 - v) * (4 * C)
+    fac = finite.reshape(-1).take(flat)
+    bad = dead.reshape(-1).take(flat) | (c > 2)
+    if idx is None:
+        amt_all = fac * (c < 3)           # a class-3 pick commits nothing
+    else:
+        bad |= v == 0
+        amt_all = fac
+
+    def decide(w, rows):
+        """(slot of each row's pick [.., 1], its score) against w."""
+        wc = w if idx is None else w.take(idx[rows])
+        scores = (wc * fac[rows]).masked_fill_(bad[rows], _INF)
+        best = scores.amin(dim=-1, keepdim=True)
+        r = rank[rows].masked_fill(scores != best, _RANK_BIG)
+        return r.argmin(dim=-1, keepdim=True), best[..., 0]
+
+    dw = torch.zeros(M, dtype=torch.float32, device=dev)
+    picks, vals = [], []
+    for b in range(n_proc):
+        j, best = decide(W0 + dw, b)
+        if vl[b]:
+            server = j if idx is None else idx[b].take(j)
+            dw.index_put_((server,), amt_all[b].take(j), accumulate=True)
+        picks.append(j)
+        vals.append(best)
+    # arrivals after the last valid one all score against the final dW
+    j, best = decide(W0 + dw, slice(n_proc, B))
+    if picks:
+        j = torch.cat([torch.stack(picks), j])
+        best = torch.cat([torch.stack(vals), best])
+    sel = j[:, 0] if idx is None else idx.gather(1, j)[:, 0]
+    scls = c.gather(1, j)[:, 0]
+
+    commit = (valid.to(torch.bool) & (scls < 3)).to(torch.int32)
+    Q_new = Q.to(torch.int32).clone()
+    Q_new.index_put_((sel, scls.clamp(max=2)), commit, accumulate=True)
+    return (Q_new, W0 + dw, sel.to(torch.int32), scls.to(torch.int32),
+            best.to(torch.float32))
+
+
+def route_commit_wseq(Q: torch.Tensor, sel: torch.Tensor, sel_cls: torch.Tensor,
+                      valid: torch.Tensor, inv_rates: torch.Tensor) -> torch.Tensor:
+    """The pre-commit workload each arrival routed against: [B, M].
+
+    Row b is ``W0 + (commits of arrivals 0..b-1)`` — exactly what
+    route_commit scored arrival b with."""
+    M = Q.shape[0]
+    finite, _ = _finite_dead(inv_rates, M)
+    W0 = workload(Q, finite)
+    m = torch.arange(M, device=Q.device)
+    s = sel.to(torch.int64)
+    c = sel_cls.to(torch.int64)
+    amt = finite[s, c.clamp(max=2)] * (c < 3) * valid.to(torch.bool)
+    dw = torch.zeros(M, dtype=torch.float32, device=Q.device)
+    rows = []
+    for b in range(s.shape[0]):
+        rows.append(W0 + dw)
+        dw = dw + torch.where(m == s[b], amt[b], 0.0)
+    return torch.stack(rows) if rows else W0.new_empty((0, M))

@@ -14,3 +14,9 @@ except ImportError:
 
     sys.modules["hypothesis"] = _hypothesis_stub
     sys.modules["hypothesis.strategies"] = _hypothesis_stub.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one "
+        "(run on the card with `pytest -m gpu tests/test_torch_gpu.py`)")
