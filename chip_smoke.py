@@ -5,16 +5,23 @@
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
-     every kernel of the main path from src/repro_torch/kernels/csrc/.
-  2. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes, with homogeneous and heterogeneous (dead-entry) rates
-     and tie-forcing queues; outputs must be equal to the bit.  Each is timed
-     with CUDA events beside its bound and its plain version's time.
+     every source under src/repro_torch/kernels/csrc/, all at once.
+  2. kernels against their plain PyTorch versions on the card, at the
+     shapes their paths use, with homogeneous and heterogeneous (dead-entry)
+     rates and tie-forcing inputs (class-3 entries, duplicate candidates,
+     rows without a finite score, dropped commits, bfloat16 W); outputs must
+     be equal to the bit.  Each is timed with CUDA events beside its bound
+     and its plain version's time.
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size; then
      Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000.  The
      launch counters are zeroed just before each run and read just after:
      route_commit must launch once per slot.
+  4. complexity (paper §IV-C), on the port's public functions: probes per
+     decision; microseconds per routing decision of weighted_argmin (O(M))
+     and pod_route (O(d)) as M grows; and 200 snapshot routing ticks
+     (sample -> classes -> route -> queue_update) of BP and BP-Pod at M=500
+     and M=5000, checking Q and W after every tick and one launch per call.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -25,6 +32,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -32,9 +40,26 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 peak outside tensor cores
-CU_SOURCE = "src/repro_torch/kernels/csrc/route_commit.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"route_commit_full": CSRC + "route_commit.cu",
+           "route_commit_pod": CSRC + "route_commit.cu",
+           "weighted_argmin": CSRC + "snapshot_route.cu",
+           "pod_route": CSRC + "snapshot_route.cu",
+           "queue_update": CSRC + "snapshot_route.cu"}
 REPLACES = {"route_commit_full": "src/repro/kernels/route_commit.py:93",
-            "route_commit_pod": "src/repro/kernels/route_commit.py:176"}
+            "route_commit_pod": "src/repro/kernels/route_commit.py:176",
+            "weighted_argmin": "src/repro/kernels/weighted_argmin.py:45",
+            "pod_route": "src/repro/kernels/pod_route.py:45",
+            "queue_update": "src/repro/kernels/queue_update.py:37"}
+NO_LIBRARY = {
+    "route_commit": "no single PyTorch call computes a sequential commit",
+    "weighted_argmin": "no single PyTorch call masks, weights and takes a "
+                       "first-index argmin per row",
+    "pod_route": "no single PyTorch call gathers candidates, weights them "
+                 "and takes a first-slot argmin",
+    "queue_update": "no single PyTorch call scatters the commits and sums "
+                    "the weighted rows"}
+SNAPSHOT_SHAPES = [(500, 256, 11), (5000, 256, 11), (8192, 256, 11)]
 
 
 def log(*a):
@@ -67,6 +92,43 @@ def cuda_time_ms(fn, iters: int, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int = 500, warmup: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``, the calls back to back
+    in the stream.  A spin kernel holds the stream while the host enqueues
+    the calls, so the host's issue time is not counted; the spin grows
+    until the start event is still pending when the last call is queued."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 10_000_000
+    while cycles < 10**11:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail("the host could not enqueue the timed calls ahead of the card")
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least time in ms, "bytes" or "operations"): bytes over the memory
+    rate against float32 operations over the peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -111,12 +173,9 @@ def bound(x: dict, variant: str):
     ins = [x["Q"], x["valid"], x["inv"]] + list(variant_args(x, variant).values())
     M, B = x["Q"].shape[0], x["valid"].shape[0]
     out_bytes = M * 3 * 4 + M * 4 + 3 * B * 4
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + out_bytes
     cand = M if variant == "full" else x["cand_idx"].shape[1]
     ops = 5 * M + 2 * B * cand          # W0, then one add + multiply a score
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(nbytes(*ins) + out_bytes, ops)
 
 
 def check_kernels(dev, quick: bool) -> dict:
@@ -148,13 +207,14 @@ def check_kernels(dev, quick: bool) -> dict:
                         f"{'hetero' if hetero else 'homo  '} seed={seed}: "
                         f"equal to the plain version")
             # time at the main path's operand (homogeneous [3] rates): the
-            # kernel alone into preallocated outputs, then the whole wrapper
+            # kernel alone into preallocated outputs (device time), then the
+            # whole wrapper as the host issues it
             x = kernel_inputs(M, B, C, False, 0, dev)
             kw = variant_args(x, variant)
             outs = tuple(torch.empty_like(o) for o in got)
-            iters = 200 if quick else 2000
-            k_ms = cuda_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
-                                               outs, **kw), iters)
+            iters = 200 if quick else 500
+            k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
+                                                 outs, **kw), iters)
             w_ms = cuda_time_ms(lambda: route_commit(x["Q"], x["valid"],
                                                      x["inv"], **kw), iters)
             p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"],
@@ -165,9 +225,136 @@ def check_kernels(dev, quick: bool) -> dict:
                 f"{'' if variant == 'full' else f' C={C}'}: kernel {k_ms:.6f} ms"
                 f"  wrapper {w_ms:.6f} ms"
                 f"  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms ({b_by})"
-                f"  library n/a")
+                f"  library n/a ({NO_LIBRARY['route_commit']})")
             rows[(variant, M)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                       bound_by=b_by, max_abs_err=err[(variant, M)], B=B)
+    return rows
+
+
+def snapshot_inputs(M: int, B: int, C: int, hetero: bool, seed: int, dev):
+    """Tie-forcing snapshot inputs: few distinct workloads (even seeds) or
+    uniform ones, lattice or pooled rates with dead servers and columns
+    (hetero), class-3 entries and a row of class 3 only, duplicate
+    candidates, invalid slots and a row with none valid, and commits that
+    must drop (invalid, class 3, server M)."""
+    rng = np.random.default_rng(seed)
+    x = kernel_inputs(M, B, C, hetero, seed, dev)
+    W = (rng.choice(np.array([0.0, 1.0, 2.5, 77.0], np.float32), M)
+         if seed % 2 == 0 else rng.uniform(0, 100, M).astype(np.float32))
+    cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+    cls[0] = 3
+    ci = rng.integers(0, M, (B, C)).astype(np.int32)
+    ci[:, 1::2] = ci[:, 0::2][:, :ci[:, 1::2].shape[1]]
+    cv = rng.random((B, C)) < 0.85
+    cv[0] = False
+    sel = rng.integers(0, M, B).astype(np.int32)
+    sel[rng.random(B) < 0.1] = M
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(W=t(W), cls=t(cls), inv=x["inv"], cand_idx=t(ci),
+                cand_cls=t(rng.integers(0, 4, (B, C)).astype(np.int32)),
+                cand_valid=t(cv), Q=x["Q"], sel=t(sel),
+                sel_cls=t(rng.integers(0, 4, B).astype(np.int32)),
+                valid=t(rng.random(B) < 0.85))
+
+
+def snapshot_timing_inputs(M: int, B: int, C: int, dev, seed: int = 0):
+    """The complexity benchmark's inputs (benchmarks/complexity.py): rates
+    [25, 50, 125], uniform W, classes 0..2, C random candidates all valid;
+    and a batch to commit for queue_update."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ri = lambda hi, shape: torch.randint(0, hi, shape, generator=g, device=dev,
+                                         dtype=torch.int32)
+    return dict(W=torch.rand(M, generator=g, device=dev) * 100,
+                cls=ri(3, (B, M)),
+                inv=torch.tensor([25.0, 50.0, 125.0], device=dev),
+                cand_idx=ri(M, (B, C)), cand_cls=ri(3, (B, C)),
+                cand_valid=torch.ones((B, C), dtype=torch.bool, device=dev),
+                Q=ri(50, (M, 3)), sel=ri(M, (B,)), sel_cls=ri(3, (B,)),
+                valid=torch.ones(B, dtype=torch.bool, device=dev))
+
+
+def snapshot_calls(x: dict):
+    """name -> (public function, plain version, launch, args, outputs)."""
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.pod_route import launch as pod_route_launch
+    from repro_torch.kernels.queue_update import launch as queue_update_launch
+    from repro_torch.kernels.weighted_argmin import launch as weighted_argmin_launch
+    B, M = x["cls"].shape
+    dev = x["W"].device
+    out = lambda: (torch.empty(B, dtype=torch.int32, device=dev),
+                   torch.empty(B, dtype=torch.float32, device=dev))
+    return {
+        "weighted_argmin": (tk.weighted_argmin, tk.weighted_argmin_ref,
+                            weighted_argmin_launch,
+                            (x["W"], x["cls"], x["inv"]), out()),
+        "pod_route": (tk.pod_route, tk.pod_route_ref, pod_route_launch,
+                      (x["W"], x["cand_idx"], x["cand_cls"], x["cand_valid"],
+                       x["inv"]), out()),
+        "queue_update": (tk.queue_update, tk.queue_update_ref,
+                         queue_update_launch,
+                         (x["Q"], x["sel"], x["sel_cls"], x["valid"], x["inv"]),
+                         (torch.empty_like(x["Q"]),
+                          torch.empty(M, dtype=torch.float32, device=dev)))}
+
+
+def snapshot_bound(name: str, x: dict):
+    """Least time for one call at these inputs: each input read once and
+    each output written once (pod_route reads only the W and rate entries
+    its candidates name), against the float32 operations."""
+    B, M = x["cls"].shape
+    inv_row = 12 if x["inv"].ndim == 2 else 0
+    if name == "weighted_argmin":
+        return bound_ms(nbytes(x["W"], x["cls"], x["inv"]) + 8 * B, B * M)
+    if name == "pod_route":
+        named = int(torch.unique(x["cand_idx"]).numel())
+        return bound_ms(nbytes(x["cand_idx"], x["cand_cls"], x["cand_valid"])
+                        + named * (x["W"].element_size() + inv_row)
+                        + (0 if inv_row else 12) + 8 * B, x["cand_idx"].numel())
+    return bound_ms(nbytes(x["Q"], x["sel"], x["sel_cls"], x["valid"], x["inv"])
+                    + 16 * M, 5 * M + B)
+
+
+def check_snapshot_kernels(dev, quick: bool) -> dict:
+    """Each snapshot kernel against its plain version on tie-forcing
+    batteries, then timed at the complexity benchmark's inputs."""
+    rows, err = {}, {}
+    for M, B, C in SNAPSHOT_SHAPES:
+        for hetero in (False, True):
+            for seed in range(2):
+                x = snapshot_inputs(M, B, C, hetero, seed, dev)
+                cases = list(snapshot_calls(x).items())
+                w16 = x["W"].to(torch.bfloat16)
+                cases += [(n, (f, p, l, (w16,) + a[1:], o)) for n, (f, p, l, a, o)
+                          in cases if n != "queue_update"]
+                for name, (fn, plain, _, args, _) in cases:
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    want = plain(*args)
+                    for i, (a, b) in enumerate(zip(got, want)):
+                        if not torch.equal(a, b):
+                            fail(f"{name} M={M} B={B} hetero={hetero} seed={seed} "
+                                 f"W={args[0].dtype}: output {i} differs from "
+                                 f"the plain version")
+                        if a.is_floating_point():
+                            d = (a - b).abs().nan_to_num(0.0)
+                            err[name] = max(err.get(name, 0.0), float(d.max()))
+                log(f"  snapshot kernels M={M:5d} B={B} C={C} "
+                    f"{'hetero' if hetero else 'homo  '} seed={seed}: "
+                    f"weighted_argmin (f32, bf16), pod_route (f32, bf16) and "
+                    f"queue_update equal to their plain versions")
+        x = snapshot_timing_inputs(M, B, C, dev)
+        for name, (fn, plain, launch, args, outs) in snapshot_calls(x).items():
+            k_ms = device_time_ms(lambda: launch(*args, *outs),
+                                  200 if quick else 500)
+            p_ms = cuda_time_ms(lambda: plain(*args), 5 if quick else 20, warmup=2)
+            b_ms, b_by = snapshot_bound(name, x)
+            log(f"  {name} M={M} B={B}{f' C={C}' if name == 'pod_route' else ''}: "
+                f"kernel {k_ms:.6f} ms  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms "
+                f"({b_by})  library n/a ({NO_LIBRARY[name]})")
+            rows[(name, M)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, B=B, C=C)
+    for (name, _), r in rows.items():
+        r["max_abs_err"] = err[name]
     return rows
 
 
@@ -257,6 +444,120 @@ def run_simulations(dev, quick: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: complexity (paper §IV-C)
+# ---------------------------------------------------------------------------
+
+
+def complexity_probes() -> None:
+    """Servers whose workload one routing decision reads: M for BP, the
+    replicas plus d for BP-Pod (benchmarks/complexity.py's table)."""
+    from repro_torch.core import Cluster, PodSpec, bp_candidates_per_route
+    log(f"  {'M':>7} {'BP probes':>10} {'BP-Pod probes':>14} {'fraction':>9}")
+    for M in (100, 500, 1000, 4000, 16000):
+        cl = Cluster(M=M, K=10)
+        full = bp_candidates_per_route(cl, None)
+        pod = bp_candidates_per_route(cl, PodSpec(2, 6))
+        log(f"  {M:>7} {full:>10} {pod:>14} {pod / full:>9.4f}")
+
+
+def complexity_per_decision(dev, quick: bool) -> list:
+    """Microseconds per routing decision, B=256 tasks a call, C=11: the
+    kernel alone on the card (device time, calls back to back) and the
+    public function as a Python caller sees it (host wall clock)."""
+    B, C = 256, 11
+    iters = 100 if quick else 400
+    rows = []
+    log(f"  {'M':>6} | device us/decision: {'BP':>9} {'BP-Pod':>9} {'ratio':>7} "
+        f"| call us/decision: {'BP':>9} {'BP-Pod':>9} {'ratio':>7}")
+    for M in (128, 500, 512, 2048, 5000, 8192, 16000):
+        calls = snapshot_calls(snapshot_timing_inputs(M, B, C, dev, seed=1))
+        us = {}
+        for name in ("weighted_argmin", "pod_route"):
+            fn, plain, launch, args, outs = calls[name]
+            got, want = fn(*args), plain(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{name} M={M}: differs from the plain version")
+            dev_ms = device_time_ms(lambda: launch(*args, *outs), iters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) / iters * 1e3
+            us[name] = (dev_ms * 1e3 / B, call_ms * 1e3 / B)
+        (fd, fc), (pd, pc) = us["weighted_argmin"], us["pod_route"]
+        log(f"  {M:>6} | {'':>20}{fd:>9.5f} {pd:>9.5f} {fd / pd:>7.3f} "
+            f"| {'':>18}{fc:>9.5f} {pc:>9.5f} {fc / pc:>7.3f}")
+        rows.append(dict(M=M, device_us=(fd, pd), call_us=(fc, pc)))
+    return rows
+
+
+def routing_ticks(dev, ticks: int = 200) -> dict:
+    """Snapshot routing ticks of BP and BP-Pod: sample_locals ->
+    locality_class -> weighted_argmin, or -> pod_candidates -> pod_route
+    (sel_cls from the first slot that holds sel) -> queue_update.  After
+    every tick Q.sum() must equal the valid arrivals so far and W must equal
+    the workload of Q to the bit; each call launches its kernel once and
+    route_commit not at all.  Returns the launches of these runs."""
+    from repro_torch.core import (Cluster, PodSpec, Rates, locality_class,
+                                  pod_candidates, safe_inv_rates, sample_locals)
+    from repro_torch.kernels import (LAUNCHES, encode, pod_route, queue_update,
+                                     reset_launch_counts, weighted_argmin)
+    from repro_torch.kernels.ref import workload
+
+    B, pod = 256, PodSpec(2, 6)
+    launches = {"weighted_argmin": 0, "pod_route": 0, "queue_update": 0}
+    for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50)):
+        inv = safe_inv_rates(Rates(0.01, 0.005, 0.002).as_array(dev))
+        finite = encode(inv, cl.M, flags=False)[:, :3]
+        for route in ("weighted_argmin", "pod_route"):
+            gen = torch.Generator(device=dev).manual_seed(7)
+            rng = np.random.default_rng(7)
+            slot = torch.arange(B, device=dev)
+            Q = torch.zeros((cl.M, 3), dtype=torch.int32, device=dev)
+            W = torch.zeros(cl.M, dtype=torch.float32, device=dev)
+            arrived = 0
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                n = int(rng.integers(B // 2, B + 1))
+                locals_ = sample_locals(gen, cl, B, device=dev)
+                cls = locality_class(cl, locals_)
+                if route == "weighted_argmin":
+                    sel, _ = weighted_argmin(W, cls, inv)
+                    sel_cls = cls.gather(1, sel.long()[:, None])[:, 0]
+                else:
+                    ci, cc, cv = pod_candidates(gen, cl, locals_, cls, pod)
+                    cc = cc.contiguous()
+                    sel, _ = pod_route(W, ci, cc, cv, inv)
+                    first = (ci == sel[:, None]).to(torch.int32).argmax(dim=1)
+                    sel_cls = cc.gather(1, first[:, None])[:, 0]
+                Q, W = queue_update(Q, sel, sel_cls, slot < n, inv)
+                arrived += n
+                if int(Q.sum()) != arrived:
+                    fail(f"{route} M={cl.M}: Q holds {int(Q.sum())} tasks, "
+                         f"{arrived} arrived")
+                if not torch.equal(W, workload(Q, finite)):
+                    fail(f"{route} M={cl.M}: W is not the workload of Q")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            want = {k: 0 for k in counts}
+            want[route] = want["queue_update"] = ticks
+            if counts != want:
+                fail(f"{route} M={cl.M}: launches {counts}, expected {want}")
+            for k in launches:
+                launches[k] += counts[k]
+            algo = "BP" if route == "weighted_argmin" else "BP-Pod"
+            log(f"  {algo:6s} M={cl.M} B={B}: {ticks} ticks, {arrived} tasks "
+                f"committed, busiest server {int(Q.sum(1).max())} tasks, "
+                f"Q and W checked every tick, wall/tick {wall / ticks * 1e3:.4f} ms "
+                f"(checks included), launches {counts}")
+    return launches
+
+
 def profile_slots(dev, slots: int = 400) -> None:
     """Where a slot's time goes on the card: torch.profiler over ``slots``
     slots of each algorithm at paper scale, load 0.9 (a CUDA-graph-free,
@@ -316,24 +617,35 @@ def main() -> int:
         f"{torch.cuda.device_count()} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = build.build("route_commit", verbose=True)
-    log(f"[1] built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
+        libs = list(pool.map(lambda n: build.build(n, verbose=True), names))
+    log(f"[1] built {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_slots(dev)
         return 0
 
     log("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
+    snap = check_snapshot_kernels(dev, args.quick)
     log("[3] simulator")
     check_small_run_matches_cpu(dev)
     launches = run_simulations(dev, args.quick)
+    log("[4] complexity (paper §IV-C): probes per routing decision")
+    complexity_probes()
+    log("[4] time per routing decision, O(M) weighted_argmin against O(d) "
+        "pod_route (ratio = BP / BP-Pod)")
+    complexity_per_decision(dev, args.quick)
+    log("[4] snapshot routing ticks")
+    launches.update(routing_ticks(dev))
 
     kernels = []
     for variant in ("full", "pod"):
         name = f"route_commit_{variant}"
         r = rows[(variant, 500)]
         kernels.append(dict(
-            name=name, route="cuda", source=CU_SOURCE,
+            name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(rows[(variant, M)]["max_abs_err"]
                             for M in (500, 5000)),
@@ -343,6 +655,16 @@ def main() -> int:
             ms_m5000=rows[(variant, 5000)]["ms"],
             plain_ms_m5000=rows[(variant, 5000)]["plain_ms"],
             bound_ms_m5000=rows[(variant, 5000)]["bound_ms"]))
+    for name in ("weighted_argmin", "pod_route", "queue_update"):
+        r = snap[(name, 500)]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            shape=f"M=500 B={r['B']}" + (f" C={r['C']}" if name == "pod_route" else ""),
+            by_M={str(M): {k: snap[(name, M)][k] for k in ("ms", "plain_ms", "bound_ms")}
+                  for M, _, _ in SNAPSHOT_SHAPES}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Inverse-rate operand encoding shared by the port's scheduler kernels.
+"""What the port's scheduler kernels share: the inverse-rate operand, the
+CPU/CUDA dispatch rule, the launch counters and the wrappers' input checks.
 
 Mirror of ``repro.kernels.invrates``.  Callers pass per-(server, class)
 reciprocal service rates either as the homogeneous ``[3]`` vector or as a
@@ -19,7 +20,9 @@ a launch needs no encoding pass.
 
 Dispatch rule (``use_kernel``): a tensor on the CPU goes to the plain
 PyTorch version, a tensor on a CUDA device goes to the hand-written CUDA
-kernel.  There is no fallback from one to the other.
+kernel.  There is no fallback from one to the other.  ``LAUNCHES`` counts
+each kernel's launches (one key per kernel); the CPU path and the plain
+versions never touch it.
 """
 from __future__ import annotations
 
@@ -30,14 +33,46 @@ WIDTH = 8          # padded lane width: [rates 0..2 | 0 | flags 4..6 | 0]
 FLAG_BASE = 4
 
 
-def use_kernel(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
+LAUNCHES = {"route_commit_full": 0, "route_commit_pod": 0,
+            "weighted_argmin": 0, "pod_route": 0, "queue_update": 0}
+
+
+def reset_launch_counts() -> None:
+    """Zero every launch counter."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def use_kernel(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor (launch ``kernel``), False for a CPU tensor
+    (run its plain version); any other device raises."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no route_commit for device {t.device}")
+    raise ValueError(f"{kernel} runs on a CUDA or a CPU tensor, "
+                     f"not on {t.device}")
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has this device, dtype (one dtype or a tuple of
+    them) and shape and is contiguous: what a kernel's pointers assume."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_inv_rates(inv_rates: torch.Tensor, M: int, device) -> None:
+    """Check the ``[3]`` / ``[M, 3]`` float32 operand a kernel reads raw."""
+    if tuple(inv_rates.shape) not in ((CLASSES,), (M, CLASSES)):
+        raise ValueError(f"inv_rates has shape {tuple(inv_rates.shape)}, "
+                         f"expected (3,) or ({M}, 3)")
+    check(inv_rates, "inv_rates", torch.float32, tuple(inv_rates.shape), device)
 
 
 def as_matrix(inv_rates: torch.Tensor, M: int) -> torch.Tensor:

@@ -1,13 +1,20 @@
 """Plain PyTorch versions of the scheduler kernels (mirror of
 ``repro.kernels.ref``).
 
-``route_commit_ref`` is the plain version of the CUDA ``route_commit``
-kernel: the CPU path runs it, and the tests and ``chip_smoke.py`` hold the
-kernel to it.  It is never the card's main path.
+Each ``*_ref`` here is the plain version of one CUDA kernel: the CPU path
+runs it, and the tests and ``chip_smoke.py`` hold the kernel to it.  None
+is the card's path.
 
 Inverse-rate operand: the homogeneous ``[3]`` vector or a per-server
 ``[M, 3]`` matrix, ``+inf`` for a dead entry.  Dead entries score ``+inf``
 after the multiply and contribute 0 workload.
+
+Class 3 is the Pallas kernels' pad class and scores ``+inf`` in every
+routing function here, as it does in the kernels.  (The JAX oracles
+``weighted_argmin_ref`` / ``pod_route_ref`` gather ``inv[3]``, which JAX
+clamps to class 2, so they score a class-3 entry as a remote one; the
+port follows the kernels.)  Classes 0 and 1 read their own rate and any
+other class reads class 2's, as the kernels' select chain does.
 """
 from __future__ import annotations
 
@@ -26,6 +33,81 @@ def _finite_dead(inv_rates: torch.Tensor, M: int):
     encoding (invrates.encode)."""
     enc = encode(inv_rates, M)
     return enc[:, :CLASSES], enc[:, FLAG_BASE:FLAG_BASE + CLASSES] > 0
+
+
+def _rate_lane(c: torch.Tensor) -> torch.Tensor:
+    """The rate column a class reads: 0 and 1 their own, any other 2."""
+    return torch.where((c == 0) | (c == 1), c, 2)
+
+
+def _snapshot_scores(w, idx, c, finite, dead, ok=None):
+    """w * inv[idx, c] in float32, +inf where the entry is dead, the class
+    is 3 or more, or ``ok`` is False."""
+    flat = idx * CLASSES + _rate_lane(c)
+    bad = dead.reshape(-1).take(flat) | (c >= CLASSES)
+    if ok is not None:
+        bad |= ~ok
+    return (w * finite.reshape(-1).take(flat)).masked_fill_(bad, _INF)
+
+
+def weighted_argmin_ref(W: torch.Tensor, cls: torch.Tensor,
+                        inv_rates: torch.Tensor):
+    """Balanced-Pandas O(M) snapshot routing of a batch.
+
+    W: [M] float32 or bfloat16 (cast to float32 first); cls: [B, M] int32;
+    inv_rates: [3] or [M, 3].  Returns (sel [B] int32, val [B] float32):
+    the lowest m minimising ``W[m] * inv[m, cls[b, m]]`` and that score.
+    A row that scores ``+inf`` everywhere gives sel 0, val ``+inf``."""
+    M = cls.shape[-1]
+    finite, dead = _finite_dead(inv_rates, M)
+    m = torch.arange(M, device=cls.device)
+    scores = _snapshot_scores(W.to(torch.float32), m, cls.to(torch.int64),
+                              finite, dead)
+    val, sel = scores.min(dim=-1)
+    return sel.to(torch.int32), val
+
+
+def pod_route_ref(W: torch.Tensor, cand_idx: torch.Tensor,
+                  cand_cls: torch.Tensor, valid: torch.Tensor,
+                  inv_rates: torch.Tensor):
+    """Balanced-Pandas-Pod O(d) snapshot routing over candidate lists.
+
+    W: [M] float32 or bfloat16; cand_idx/cand_cls: [B, C] int32; valid:
+    [B, C] bool; inv_rates: [3] or [M, 3].  Returns (sel [B] int32, val
+    [B] float32): ``cand_idx[b, c*]`` for the lowest slot c* minimising
+    ``W[cand] * inv[cand, cls]`` (invalid slots score ``+inf``), and that
+    score.  A row that scores ``+inf`` everywhere gives ``cand_idx[b, 0]``.
+    A candidate index outside 0..M-1 scores ``+inf``."""
+    M = W.shape[0]
+    finite, dead = _finite_dead(inv_rates, M)
+    idx = cand_idx.to(torch.int64)
+    inside = (idx >= 0) & (idx < M)
+    idx_in = idx.clamp(0, M - 1)
+    scores = _snapshot_scores(W.to(torch.float32).take(idx_in), idx_in,
+                              cand_cls.to(torch.int64), finite, dead,
+                              valid.to(torch.bool) & inside)
+    val, slot = scores.min(dim=-1, keepdim=True)
+    return cand_idx.gather(-1, slot)[:, 0].to(torch.int32), val[:, 0]
+
+
+def queue_update_ref(Q: torch.Tensor, sel: torch.Tensor, sel_cls: torch.Tensor,
+                     valid: torch.Tensor, inv_rates: torch.Tensor):
+    """Commit a routed batch and refresh the workloads.
+
+    Q: [M, 3] int32; sel/sel_cls: [B] int32; valid: [B] bool.  Returns
+    (Q_new [M, 3] int32, W [M] float32): ``Q_new[sel[b], sel_cls[b]] += 1``
+    for each valid arrival whose server is in 0..M-1 and whose class is in
+    0..2 (the others, such as the pad server M or the pad class 3, are
+    dropped), and ``W = workload(Q_new)`` with dead rates counting 0."""
+    M = Q.shape[0]
+    finite, _ = _finite_dead(inv_rates, M)
+    s = sel.to(torch.int64)
+    c = sel_cls.to(torch.int64)
+    keep = valid.to(torch.bool) & (s >= 0) & (s < M) & (c >= 0) & (c < CLASSES)
+    Q_new = Q.to(torch.int32).clone()
+    Q_new.index_put_((s.clamp(0, M - 1), c.clamp(0, CLASSES - 1)),
+                     keep.to(torch.int32), accumulate=True)
+    return Q_new, workload(Q_new, finite)
 
 
 def workload(Q: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,8 @@ Two variants share the wrapper:
   pod   (``cand_idx``/``cand_cls``/``cand_valid``: [B, C]) — power-of-d
         argmin over an explicit candidate list.
 
-``LAUNCHES`` counts kernel launches per variant; the CPU path and the
-plain version never touch it.
+``invrates.LAUNCHES`` counts kernel launches per variant; the CPU path
+and the plain version never touch it.
 """
 from __future__ import annotations
 
@@ -26,10 +26,9 @@ from typing import Optional
 import torch
 
 from . import build
-from .invrates import use_kernel
+from .invrates import LAUNCHES, check, check_inv_rates, use_kernel
 from .ref import route_commit_ref
 
-LAUNCHES = {"route_commit_full": 0, "route_commit_pod": 0}
 THREADS_FULL = 512
 THREADS_POD = 256
 _MAX_M = 32767          # (cls*M + prio)*M + m must fit in a uint32 rank lane
@@ -37,12 +36,6 @@ _SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def reset_launch_counts() -> None:
-    """Zero every launch counter."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache
@@ -56,17 +49,6 @@ def _lib() -> ctypes.CDLL:
                                      _I, _P, _P, _P, _P, _P, _I, _P]
     lib.route_commit_pod.restype = _I
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def route_commit(Q: torch.Tensor, valid: torch.Tensor,
@@ -92,7 +74,7 @@ def route_commit(Q: torch.Tensor, valid: torch.Tensor,
                                  or cand_valid is None):
         raise ValueError("the pod variant takes cand_idx, cand_cls and "
                          "cand_valid, and no prio")
-    if not use_kernel(Q):
+    if not use_kernel(Q, "route_commit"):
         return route_commit_ref(Q, valid, inv_rates, cls=cls, prio=prio,
                                 cand_idx=cand_idx, cand_cls=cand_cls,
                                 cand_valid=cand_valid)
@@ -102,22 +84,19 @@ def route_commit(Q: torch.Tensor, valid: torch.Tensor,
     B = valid.shape[0]
     if not 0 < M <= _MAX_M or 8 * M > _SMEM_LIMIT:
         raise ValueError(f"route_commit kernel supports 0 < M <= {_MAX_M}")
-    _check(Q, "Q", torch.int32, (M, 3), dev)
-    _check(valid, "valid", torch.bool, (B,), dev)
-    if tuple(inv_rates.shape) not in ((3,), (M, 3)):
-        raise ValueError(f"inv_rates has shape {tuple(inv_rates.shape)}, "
-                         f"expected (3,) or ({M}, 3)")
-    _check(inv_rates, "inv_rates", torch.float32, tuple(inv_rates.shape), dev)
+    check(Q, "Q", torch.int32, (M, 3), dev)
+    check(valid, "valid", torch.bool, (B,), dev)
+    check_inv_rates(inv_rates, M, dev)
 
     if cls is not None:
-        _check(cls, "cls", torch.int32, (B, M), dev)
+        check(cls, "cls", torch.int32, (B, M), dev)
         if prio is not None:
-            _check(prio, "prio", torch.int32, (M,), dev)
+            check(prio, "prio", torch.int32, (M,), dev)
     else:
         C = cand_idx.shape[1] if cand_idx.ndim == 2 else -1
-        _check(cand_idx, "cand_idx", torch.int32, (B, C), dev)
-        _check(cand_cls, "cand_cls", torch.int32, (B, C), dev)
-        _check(cand_valid, "cand_valid", torch.bool, (B, C), dev)
+        check(cand_idx, "cand_idx", torch.int32, (B, C), dev)
+        check(cand_cls, "cand_cls", torch.int32, (B, C), dev)
+        check(cand_valid, "cand_valid", torch.bool, (B, C), dev)
     outs = (torch.empty((M, 3), dtype=torch.int32, device=dev),
             torch.empty(M, dtype=torch.float32, device=dev),
             torch.empty(B, dtype=torch.int32, device=dev),

@@ -1,5 +1,5 @@
-"""On the card: the CUDA ``route_commit`` against its plain version, and
-the simulator's CUDA path against its CPU path.
+"""On the card: each CUDA kernel against its plain version, and the
+simulator's CUDA path against its CPU path.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no JAX (the card's machine has none).  Run it there with
@@ -12,7 +12,8 @@ import torch
 from repro_torch import kernels as tk
 from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
 from repro_torch.core.simulator import BP_POD_DEFAULT, SlotDraws
-from repro_torch.kernels import route_commit_ref
+from repro_torch.kernels import (pod_route_ref, queue_update_ref,
+                                 route_commit_ref, weighted_argmin_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -67,7 +68,9 @@ def test_cuda_launch_counter_and_input_checks(dev):
     tk.route_commit(Q, v, torch.ones(3, device=dev),
                     cls=torch.zeros((B, M), dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
-    assert tk.LAUNCHES == {"route_commit_full": 1, "route_commit_pod": 0}
+    assert tk.LAUNCHES["route_commit_full"] == 1
+    assert tk.LAUNCHES["route_commit_pod"] == 0
+    assert sum(tk.LAUNCHES.values()) == 1
     with pytest.raises(TypeError):
         tk.route_commit(Q, v, torch.ones(3, device=dev),
                         cls=torch.zeros((B, M), dtype=torch.int64, device=dev))
@@ -75,6 +78,79 @@ def test_cuda_launch_counter_and_input_checks(dev):
         tk.route_commit(Q, v, torch.ones(3, device=dev),
                         cls=torch.zeros((B, M), dtype=torch.int32))
     assert tk.LAUNCHES["route_commit_full"] == 1
+
+
+def _snapshot_case(seed: int, M: int, B: int, C: int, homogeneous: bool):
+    """Tie-forcing snapshot inputs: few distinct workloads (or, odd seeds,
+    uniform ones), pooled rates with dead servers and columns, class-3
+    entries, a row of class 3 only, duplicate candidates, invalid slots, a
+    row with no valid slot, and commits that drop (server M, class 3)."""
+    x = _case(seed, M, B, C)
+    rng = np.random.default_rng(seed + 1000)
+    inv = np.array([10.0, 20.0, 50.0], np.float32) if homogeneous else x["inv"]
+    W = (rng.choice(np.array([0.0, 1.0, 2.5, 77.0], np.float32), M) if seed % 2 == 0
+         else rng.uniform(0, 100, M).astype(np.float32))
+    cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+    cls[0] = 3
+    ci = x["cand_idx"]
+    ci[:, 1::2] = ci[:, 0::2][:, :ci[:, 1::2].shape[1]]
+    cv = x["cand_valid"]
+    cv[0] = False
+    sel = rng.integers(0, M, B).astype(np.int32)
+    sel[rng.random(B) < 0.2] = M
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return dict(W=t(W), cls=t(cls), inv=t(inv), cand_idx=t(ci),
+                cand_cls=t(rng.integers(0, 4, (B, C)).astype(np.int32)),
+                cand_valid=t(cv), Q=t(x["Q"]), sel=t(sel),
+                sel_cls=t(rng.integers(0, 4, B).astype(np.int32)), valid=t(x["valid"]))
+
+
+def _snapshot_calls(x):
+    """(name, kernel wrapper, plain version, args) of each snapshot kernel;
+    weighted_argmin also with a bfloat16 W."""
+    w16 = x["W"].to(torch.bfloat16)
+    return [("weighted_argmin", tk.weighted_argmin, weighted_argmin_ref,
+             (x["W"], x["cls"], x["inv"])),
+            ("weighted_argmin", tk.weighted_argmin, weighted_argmin_ref,
+             (w16, x["cls"], x["inv"])),
+            ("pod_route", tk.pod_route, pod_route_ref,
+             (x["W"], x["cand_idx"], x["cand_cls"], x["cand_valid"], x["inv"])),
+            ("queue_update", tk.queue_update, queue_update_ref,
+             (x["Q"], x["sel"], x["sel_cls"], x["valid"], x["inv"]))]
+
+
+@pytest.mark.parametrize("seed,M,B,C", [(0, 64, 3, 5), (1, 129, 9, 16),
+                                        (2, 500, 256, 11), (3, 5000, 256, 11),
+                                        (4, 8192, 256, 11), (5, 500, 37, 40)])
+@pytest.mark.parametrize("homogeneous", [False, True])
+def test_cuda_snapshot_kernels_equal_plain_versions(dev, seed, M, B, C, homogeneous):
+    x = _snapshot_case(seed, M, B, C, homogeneous)
+    for name, kernel, plain, args in _snapshot_calls(x):
+        want = plain(*args)
+        got = kernel(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert torch.equal(a, b.cpu()), (name, args[0].dtype, i)
+
+
+def test_cuda_snapshot_wrappers_count_only_their_own_launches_and_check_inputs(dev):
+    x = _snapshot_case(0, 64, 4, 5, False)
+    for name, kernel, _, args in _snapshot_calls(x):
+        args = [a.to(dev) for a in args]
+        tk.reset_launch_counts()
+        kernel(*args)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[name] == 1 and sum(tk.LAUNCHES.values()) == 1, name
+        for i in range(len(args)):
+            bad = list(args)
+            bad[i] = args[i].to(torch.float64)
+            with pytest.raises(TypeError):
+                kernel(*bad)
+            if i:                     # dispatch reads the first tensor's device
+                bad[i] = args[i].cpu()
+                with pytest.raises(ValueError):
+                    kernel(*bad)
+        assert sum(tk.LAUNCHES.values()) == 1, name
 
 
 @pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod"])

@@ -204,7 +204,8 @@ def test_cpu_tensors_take_the_plain_version():
                           torch.ones(B, dtype=torch.bool), torch.ones(3),
                           cls=torch.zeros((B, M), dtype=torch.int32))
     assert out[0].sum() == B
-    assert tk.LAUNCHES == {"route_commit_full": 0, "route_commit_pod": 0}
+    assert set(tk.LAUNCHES.values()) == {0}
+    assert {"route_commit_full", "route_commit_pod"} <= set(tk.LAUNCHES)
     with pytest.raises(ValueError):
         tk.route_commit(torch.zeros((M, 3), dtype=torch.int32),
                         torch.ones(B, dtype=torch.bool), torch.ones(3))
