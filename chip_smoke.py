@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py            # the full check (one card)
     python3 chip_smoke.py --quick    # a short first run: build, kernels, T/20
+    python3 chip_smoke.py --profile  # only the slot profile and route_commit's
+                                     # time at every valid-prefix length
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
      every source under src/repro_torch/kernels/csrc/, all at once.
   2. kernels against their plain PyTorch versions on the card, at the
-     shapes their paths use, with homogeneous and heterogeneous (dead-entry)
+     shapes their paths use (and route_commit at the largest M its wrapper
+     accepts), with homogeneous, heterogeneous (dead-entry) and all-dead
      rates and tie-forcing inputs (class-3 entries, duplicate candidates,
-     rows without a finite score, dropped commits, bfloat16 W); outputs must
-     be equal to the bit.  Each is timed with CUDA events beside its bound
-     and its plain version's time.
+     rows without a finite score, dropped commits, bfloat16 W, every
+     pattern of route_commit's valid mask); outputs must be equal to the
+     bit.  Each is timed with CUDA events beside its bound and its plain
+     version's time; route_commit also per sequential step, at two valid
+     prefixes.
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size; then
      Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000.  The
@@ -136,28 +141,60 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(M: int, B: int, C: int, hetero: bool, seed: int, dev):
-    """Tie-forcing inputs: few distinct queue lengths, lattice or pooled
-    rates, and (hetero) dead servers and dead rate columns."""
+RATES = ("homo", "hetero", "dead")
+
+
+def kernel_inputs(M: int, B: int, C: int, rates: str, seed: int, dev, valid=None,
+                  class3: bool = False):
+    """Tie-forcing inputs: few distinct queue lengths, and ``rates`` "homo"
+    (the [3] lattice operand), "hetero" (pooled [M, 3] rates with dead
+    servers and dead rate columns) or "dead" (every rate dead).  ``valid``
+    defaults to the 3B/4 prefix the timings have used since the first
+    slice; ``class3`` draws the full variant's classes from 0..3 with an
+    all-class-3 row."""
     rng = np.random.default_rng(seed)
-    if hetero:
+    if rates != "homo":
         pool = np.exp(rng.uniform(np.log(1e-2), np.log(1e2), (4, 3)))
         inv = pool[rng.integers(4, size=M)].astype(np.float32)
         inv[rng.choice(M, size=max(1, M // 8), replace=False)] = np.inf
         inv[rng.random(M) < 0.2, rng.integers(3)] = np.inf
+        if rates == "dead":
+            inv[:] = np.inf
     else:
         inv = np.array([100.0, 200.0, 500.0], np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    return dict(
+    x = dict(
         Q=t(rng.integers(0, 4, (M, 3)).astype(np.int32)),
-        valid=t(np.arange(B) < max(1, (3 * B) // 4)),
+        valid=t(np.arange(B) < max(1, (3 * B) // 4) if valid is None else valid),
         inv=t(inv),
-        cls=t(rng.integers(0, 3, (B, M)).astype(np.int32)),
+        cls=rng.integers(0, 3, (B, M)).astype(np.int32),
         prio=t(rng.permutation(M).astype(np.int32)),
         cand_idx=t(rng.integers(0, M, (B, C)).astype(np.int32)),
         cand_cls=t(np.tile(np.array([0] * 3 + [1] * 2 + [2] * (C - 5), np.int32),
                            (B, 1))),
         cand_valid=t(rng.random((B, C)) < 0.9))
+    if class3:
+        x["cls"] = rng.integers(0, 4, (B, M)).astype(np.int32)
+        x["cls"][B // 2] = 3
+    x["cls"] = t(x["cls"])
+    return x
+
+
+def valid_patterns(B: int, lam: float, seed: int) -> dict:
+    """The ``valid`` patterns the kernels branch on (the chain runs to the
+    last valid arrival): none valid, only the last, only the first, a
+    Poisson(lam) prefix as the simulator draws it, the 3B/4 prefix the
+    timings use, and gaps before the last valid one.  The tests draw the
+    same patterns from tests/_torch_cases.py; this script keeps its own
+    copy so that it imports nothing from tests/."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.random(B) < 0.5
+    last = B - 1 - B // 4
+    gaps[last], gaps[last + 1:] = True, False
+    return {"none": np.zeros(B, bool), "last": np.arange(B) == B - 1,
+            "first": np.arange(B) == 0,
+            "poisson": np.arange(B) < min(B, rng.poisson(lam)),
+            "3B/4": np.arange(B) < max(1, (3 * B) // 4), "gaps": gaps}
 
 
 def variant_args(x: dict, variant: str) -> dict:
@@ -179,55 +216,87 @@ def bound(x: dict, variant: str):
 
 
 def check_kernels(dev, quick: bool) -> dict:
+    """Both route_commit variants against the plain version on the
+    battery (main-path shapes and the largest M the wrapper accepts): three
+    seeds of classes 0..2 at the 3B/4 prefix with prio given, homogeneous
+    and heterogeneous rates; then every valid pattern with class 3, with
+    homogeneous, heterogeneous and all-dead rates, prio given and absent.
+    Then timed at the main path's shapes with two valid prefixes: 3B/4
+    (comparable with the earlier slices) and round(lambda), the
+    simulator's mean arrival count."""
     from repro_torch.kernels import route_commit, route_commit_ref
     from repro_torch.kernels.route_commit import launch
 
-    shapes = [(500, 22, 11), (5000, 90, 11)]
-    rows, err = {}, {}
-    for M, B, C in shapes:
+    err = {}
+
+    def check_equal(x: dict, kw: dict, variant: str, label: str):
+        got = route_commit(x["Q"], x["valid"], x["inv"], **kw)
+        torch.cuda.synchronize()
+        want = route_commit_ref(x["Q"], x["valid"], x["inv"], **kw)
+        for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), got, want):
+            if not torch.equal(a, b):
+                fail(f"route_commit_{variant} {label} prio={'prio' in kw}: "
+                     f"{name} differs from the plain version")
+            if a.is_floating_point() and a.numel():
+                d = (a - b).abs().nan_to_num(0.0)
+                err[variant] = max(err.get(variant, 0.0), float(d.max()))
+        return got
+
+    shapes = [(500, 22, 11, 4.5), (5000, 90, 11, 45.0), (29056, 5, 11, 2.0)]
+    rows = {}
+    for M, B, C, lam in shapes:
         for variant in ("full", "pod"):
-            for hetero in (False, True):
+            for rates in ("homo", "hetero"):
                 for seed in range(3):
-                    x = kernel_inputs(M, B, C, hetero, seed, dev)
-                    kw = variant_args(x, variant)
-                    got = route_commit(x["Q"], x["valid"], x["inv"], **kw)
-                    torch.cuda.synchronize()
-                    want = route_commit_ref(x["Q"], x["valid"], x["inv"], **kw)
-                    for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"),
-                                          got, want):
-                        if not torch.equal(a, b):
-                            fail(f"route_commit_{variant} M={M} B={B} "
-                                 f"hetero={hetero} seed={seed}: {name} differs "
-                                 f"from the plain version")
-                        if a.is_floating_point() and a.numel():
-                            d = (a - b).abs().nan_to_num(0.0)
-                            err[(variant, M)] = max(err.get((variant, M), 0.0),
-                                                    float(d.max()))
-                    log(f"  route_commit_{variant:4s} M={M:5d} B={B:3d} "
-                        f"{'hetero' if hetero else 'homo  '} seed={seed}: "
-                        f"equal to the plain version")
+                    x = kernel_inputs(M, B, C, rates, seed, dev)
+                    got = check_equal(x, variant_args(x, variant), variant,
+                                      f"M={M} B={B} rates={rates} seed={seed}")
+                log(f"  route_commit_{variant:4s} M={M:5d} B={B:3d} "
+                    f"rates={rates}: equal to the plain version on seeds 0-2 "
+                    f"(classes 0..2, valid 3B/4)")
+            for rates in RATES:
+                for pattern, valid in valid_patterns(B, lam, M).items():
+                    x = kernel_inputs(M, B, C, rates, M + B, dev, valid, class3=True)
+                    kws = [variant_args(x, variant)]
+                    if variant == "full":
+                        kws.append(dict(cls=x["cls"]))
+                    for kw in kws:
+                        check_equal(x, kw, variant, f"M={M} B={B} rates={rates} "
+                                                    f"valid={pattern}")
+                log(f"  route_commit_{variant:4s} M={M:5d} B={B:3d} "
+                    f"rates={rates}: "
+                    f"equal to the plain version on valid patterns "
+                    f"{', '.join(valid_patterns(B, lam, M))}"
+                    f"{' (prio given and absent)' if variant == 'full' else ''}")
+            if M > 5000:
+                continue
             # time at the main path's operand (homogeneous [3] rates): the
             # kernel alone into preallocated outputs (device time), then the
             # whole wrapper as the host issues it
-            x = kernel_inputs(M, B, C, False, 0, dev)
-            kw = variant_args(x, variant)
-            outs = tuple(torch.empty_like(o) for o in got)
             iters = 200 if quick else 500
-            k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
-                                                 outs, **kw), iters)
-            w_ms = cuda_time_ms(lambda: route_commit(x["Q"], x["valid"],
-                                                     x["inv"], **kw), iters)
-            p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"],
-                                                         x["inv"], **kw),
-                                5 if quick else 20, warmup=2)
-            b_ms, b_by = bound(x, variant)
-            log(f"  route_commit_{variant} M={M} B={B}"
-                f"{'' if variant == 'full' else f' C={C}'}: kernel {k_ms:.6f} ms"
-                f"  wrapper {w_ms:.6f} ms"
-                f"  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms ({b_by})"
-                f"  library n/a ({NO_LIBRARY['route_commit']})")
-            rows[(variant, M)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                      bound_by=b_by, max_abs_err=err[(variant, M)], B=B)
+            for n_valid in (max(1, (3 * B) // 4), int(lam + 0.5)):
+                x = kernel_inputs(M, B, C, "homo", 0, dev, np.arange(B) < n_valid)
+                kw = variant_args(x, variant)
+                outs = tuple(torch.empty_like(o) for o in got)
+                k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
+                                                     outs, **kw), iters)
+                w_ms = cuda_time_ms(lambda: route_commit(x["Q"], x["valid"],
+                                                         x["inv"], **kw), iters)
+                p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"],
+                                                             x["inv"], **kw),
+                                    5 if quick else 20, warmup=2)
+                b_ms, b_by = bound(x, variant)
+                log(f"  route_commit_{variant} M={M} B={B}"
+                    f"{'' if variant == 'full' else f' C={C}'} valid={n_valid}: "
+                    f"kernel {k_ms:.6f} ms ({k_ms * 1e3 / n_valid:.4f} us a "
+                    f"sequential step)  wrapper {w_ms:.6f} ms"
+                    f"  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms ({b_by})"
+                    f"  library n/a ({NO_LIBRARY['route_commit']})")
+                rows[(variant, M, n_valid == int(lam + 0.5))] = dict(
+                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, B=B,
+                    n_valid=n_valid, us_per_step=k_ms * 1e3 / n_valid)
+    for key, r in rows.items():
+        r["max_abs_err"] = err[key[0]]
     return rows
 
 
@@ -238,7 +307,7 @@ def snapshot_inputs(M: int, B: int, C: int, hetero: bool, seed: int, dev):
     candidates, invalid slots and a row with none valid, and commits that
     must drop (invalid, class 3, server M)."""
     rng = np.random.default_rng(seed)
-    x = kernel_inputs(M, B, C, hetero, seed, dev)
+    x = kernel_inputs(M, B, C, "hetero" if hetero else "homo", seed, dev)
     W = (rng.choice(np.array([0.0, 1.0, 2.5, 77.0], np.float32), M)
          if seed % 2 == 0 else rng.uniform(0, 100, M).astype(np.float32))
     cls = rng.integers(0, 4, (B, M)).astype(np.int32)
@@ -560,38 +629,68 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
 
 def profile_slots(dev, slots: int = 400) -> None:
     """Where a slot's time goes on the card: torch.profiler over ``slots``
-    slots of each algorithm at paper scale, load 0.9 (a CUDA-graph-free,
-    eager loop).  Prints wall per slot, device busy time per slot, the
-    device's idle share, kernel launches per slot and the top kernels."""
+    slots of each algorithm at load 0.9, M=500 and M=5000 (a
+    CUDA-graph-free, eager loop).  Prints wall per slot, device busy time
+    per slot, the device's idle share, kernel launches per slot,
+    route_commit's device time per slot and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Cluster, Rates, SimConfig, simulate
 
-    cl, rates = Cluster(M=500, K=10), Rates(0.01, 0.005, 0.002)
+    rates = Rates(0.01, 0.005, 0.002)
     cfg = SimConfig(T=slots, warmup=0, route_mode="batched")
-    for algo in ("balanced_pandas", "balanced_pandas_pod"):
-        simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)      # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)
+    for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50)):
+        for algo in ("balanced_pandas", "balanced_pandas_pod"):
+            simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)      # warm
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
-        by_name: dict = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"  profile {algo} M=500 load=0.9, {slots} slots: "
-            f"wall/slot={wall / slots * 1e3:.4f} ms "
-            f"device_busy/slot={busy / slots * 1e3:.4f} ms "
-            f"idle_share={1 - busy / wall:.4f} "
-            f"kernels/slot={len(kern) / slots:.1f}")
-        for name, us in top:
-            log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
+            by_name: dict = {}
+            for e in kern:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            rc = sum(us for name, us in by_name.items() if "route_commit" in name)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            log(f"  profile {algo} M={cl.M} load=0.9, {slots} slots: "
+                f"wall/slot={wall / slots * 1e3:.4f} ms "
+                f"device_busy/slot={busy / slots * 1e3:.4f} ms "
+                f"idle_share={1 - busy / wall:.4f} "
+                f"kernels/slot={len(kern) / slots:.1f} "
+                f"route_commit_us/slot={rc / slots:.3f}")
+            for name, us in top:
+                log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+
+
+def sweep_route_commit(dev) -> None:
+    """route_commit's device ms a launch at each valid-prefix length n of a
+    coarse grid, 0 to B (M=500 B=22 and M=5000 B=90, C=11, homogeneous
+    rates), so a launch splits into a fixed part, n chain steps and B - n
+    tail rows.  It calls only the kernels' ``launch``, which has kept its
+    signature since the first slice: copied into an earlier commit's
+    tree, this script times that commit's kernels on the same inputs."""
+    from repro_torch.kernels.route_commit import launch
+
+    for M, B in ((500, 22), (5000, 90)):
+        for n in sorted({0, 1, 2, 4, B // 4, B // 2, (3 * B) // 4, B - 2, B - 1, B}):
+            x = kernel_inputs(M, B, 11, "homo", 0, dev, np.arange(B) < n)
+            outs = (torch.empty((M, 3), dtype=torch.int32, device=dev),
+                    torch.empty(M, device=dev),
+                    torch.empty(B, dtype=torch.int32, device=dev),
+                    torch.empty(B, dtype=torch.int32, device=dev),
+                    torch.empty(B, device=dev))
+            for variant in ("full", "pod"):
+                kw = variant_args(x, variant)
+                ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
+                                                   outs, **kw))
+                step = f" ({ms * 1e3 / n:.4f} us a sequential step)" if n else ""
+                log(f"  sweep route_commit_{variant} M={M} B={B} valid={n}: "
+                    f"{ms:.6f} ms{step}")
 
 
 def main() -> int:
@@ -599,7 +698,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="short first run: fewer timing launches, T/20")
     ap.add_argument("--profile", action="store_true",
-                    help="only build and profile where a slot's time goes")
+                    help="only build, profile where a slot's time goes and "
+                         "time route_commit at every valid-prefix length")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -624,6 +724,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_slots(dev)
+        sweep_route_commit(dev)
         return 0
 
     log("[2] kernels against their plain versions")
@@ -643,18 +744,19 @@ def main() -> int:
     kernels = []
     for variant in ("full", "pod"):
         name = f"route_commit_{variant}"
-        r = rows[(variant, 500)]
+        r = rows[(variant, 500, False)]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max(rows[(variant, M)]["max_abs_err"]
-                            for M in (500, 5000)),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            shape=f"M=500 B={r['B']}" + ("" if variant == "full" else " C=11"),
-            ms_m5000=rows[(variant, 5000)]["ms"],
-            plain_ms_m5000=rows[(variant, 5000)]["plain_ms"],
-            bound_ms_m5000=rows[(variant, 5000)]["bound_ms"]))
+            shape=f"M=500 B={r['B']} valid={r['n_valid']}"
+                  + ("" if variant == "full" else " C=11"),
+            by_shape={f"M={M} valid={rows[(variant, M, lp)]['n_valid']}": {
+                k: rows[(variant, M, lp)][k]
+                for k in ("ms", "plain_ms", "bound_ms", "us_per_step")}
+                for M in (500, 5000) for lp in (False, True)}))
     for name in ("weighted_argmin", "pod_route", "queue_update"):
         r = snap[(name, 500)]
         kernels.append(dict(

@@ -29,8 +29,8 @@ from . import build
 from .invrates import LAUNCHES, check, check_inv_rates, use_kernel
 from .ref import route_commit_ref
 
-THREADS_FULL = 512
-THREADS_POD = 256
+THREADS_FULL = 1024     # full: at most this many, one owner thread a server
+THREADS_POD = 512       # pod: warp 0 walks the chain, the rest cover all M
 _MAX_M = 32767          # (cls*M + prio)*M + m must fit in a uint32 rank lane
 _SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
 
@@ -120,7 +120,7 @@ def launch(Q, valid, inv_rates, outs, *, cls=None, prio=None,
         err = _lib().route_commit_full(
             Q.data_ptr(), valid.data_ptr(), inv_rates.data_ptr(), stride,
             cls.data_ptr(), None if prio is None else prio.data_ptr(), M, B,
-            *ptrs, THREADS_FULL, stream)
+            *ptrs, min(THREADS_FULL, -(-M // 32) * 32), stream)
         name = "route_commit_full"
     else:
         err = _lib().route_commit_pod(

@@ -5,15 +5,20 @@ Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no JAX (the card's machine has none).  Run it there with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from _torch_cases import valid_patterns
 from repro_torch import kernels as tk
 from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
 from repro_torch.core.simulator import BP_POD_DEFAULT, SlotDraws
 from repro_torch.kernels import (pod_route_ref, queue_update_ref,
                                  route_commit_ref, weighted_argmin_ref)
+from repro_torch.kernels.route_commit import launch
 
 pytestmark = pytest.mark.gpu
 
@@ -58,6 +63,163 @@ def test_cuda_route_commit_equals_plain_version(dev, seed, M, B, C, homogeneous)
         torch.cuda.synchronize()
         for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, cuda):
             assert torch.equal(a, b.cpu()), (keys, name)
+
+
+def _assert_route_commit_equal(dev, Q, valid, inv, **kw):
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (Q, valid, inv)]
+    kw = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in kw.items()}
+    plain = route_commit_ref(*args, **kw)
+    cuda = tk.route_commit(*(a.to(dev) for a in args),
+                           **{k: v.to(dev) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, cuda):
+        assert torch.equal(a, b.cpu()), (sorted(kw), name)
+
+
+@pytest.mark.parametrize("M,B,C,lam", [(500, 22, 11, 4.5), (5000, 90, 11, 45.0),
+                                       (1500, 17, 40, 6.0), (29056, 5, 11, 2.0)])
+@pytest.mark.parametrize("pattern", ["none", "last", "first", "poisson", "gaps"])
+def test_cuda_route_commit_valid_patterns(dev, M, B, C, lam, pattern):
+    """Both variants equal the plain version to the bit on every ``valid``
+    pattern: at the main path's shapes, at an M that is not a multiple of
+    the thread count (with more than 32 candidates), and at the largest M
+    the wrapper accepts; with class-3 entries and an all-class-3 row,
+    heterogeneous, homogeneous and all-dead rates, prio given and absent."""
+    x = _case(M + B, M, B, C)
+    rng = np.random.default_rng(M)
+    valid = valid_patterns(B, lam, rng)[pattern]
+    cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+    cls[B // 2] = 3
+    cand_cls = rng.integers(0, 4, (B, C)).astype(np.int32)
+    for inv in (x["inv"], np.array([10.0, 20.0, 50.0], np.float32),
+                np.full((M, 3), np.inf, np.float32)):
+        for prio in (x["prio"], None):
+            kw = {} if prio is None else {"prio": prio}
+            _assert_route_commit_equal(dev, x["Q"], valid, inv, cls=cls, **kw)
+        _assert_route_commit_equal(dev, x["Q"], valid, inv, cand_idx=x["cand_idx"],
+                                   cand_cls=cand_cls, cand_valid=x["cand_valid"])
+
+
+@pytest.mark.parametrize("B,C", [(700, 11), (3, 8000)])
+def test_cuda_route_commit_pod_past_its_staging_room(dev, B, C):
+    """At the largest M the pod kernel stages ~7000 candidate slots: 700
+    valid rows of 11 take two chunks, and rows of 8000 slots are built
+    partly from device memory in the step."""
+    M = 29056
+    x = _case(7, M, B, C)
+    valid = np.ones(B, bool)
+    valid[B // 3] = False
+    _assert_route_commit_equal(dev, x["Q"], valid, x["inv"], cand_idx=x["cand_idx"],
+                               cand_cls=x["cand_cls"], cand_valid=x["cand_valid"])
+
+
+class _AllocProp(ctypes.Structure):      # CUmemAllocationProp
+    _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                ("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("win32_meta", ctypes.c_void_p), ("compression", ctypes.c_ubyte),
+                ("rdma", ctypes.c_ubyte), ("usage", ctypes.c_ushort),
+                ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _AccessDesc(ctypes.Structure):     # CUmemAccessDesc
+    _fields_ = [("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("flags", ctypes.c_int)]
+
+
+class _CudaArray:
+    """The bytes at a device address, seen as a tensor of ``like``'s shape
+    and dtype (zero-copy, through ``__cuda_array_interface__``)."""
+
+    def __init__(self, ptr: int, like: torch.Tensor):
+        typestr = {torch.int32: "<i4", torch.float32: "<f4", torch.bool: "|b1"}
+        self.__cuda_array_interface__ = {
+            "shape": tuple(like.shape), "typestr": typestr[like.dtype],
+            "data": (ptr, False), "strides": None, "version": 2}
+
+
+@contextlib.contextmanager
+def _fenced(tensors, at_end: bool):
+    """Copies of the CUDA ``tensors``, each in device memory of its own
+    (mapped with cuMemCreate and cuMemMap) flush against a page that is
+    reserved and never mapped: the page after its last byte (``at_end``)
+    or the one before its first.  A kernel that touches a byte outside a
+    buffer then faults with an illegal address."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    u64, size = ctypes.c_uint64, ctypes.c_size_t
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+    dev_id = torch.cuda.current_device()
+    prop = _AllocProp(type=1, loc_type=1, loc_id=dev_id)    # pinned, this device
+    gran = size()
+    ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0),
+       "cuMemGetAllocationGranularity")
+    G = gran.value
+    held, out = [], []     # (reserved base, reserved bytes, handle, mapped bytes)
+    try:
+        for t in tensors:
+            n = -(-t.nbytes // G) * G
+            base, h = u64(), u64()
+            ok(cu.cuMemAddressReserve(ctypes.byref(base), size(n + 2 * G), size(0),
+                                      u64(0), u64(0)), "cuMemAddressReserve")
+            held.append([base.value, n + 2 * G, None, 0])
+            ok(cu.cuMemCreate(ctypes.byref(h), size(n), ctypes.byref(prop), u64(0)),
+               "cuMemCreate")
+            held[-1][2] = h.value
+            ok(cu.cuMemMap(u64(base.value + G), size(n), size(0), h, u64(0)),
+               "cuMemMap")
+            held[-1][3] = n
+            acc = _AccessDesc(loc_type=1, loc_id=dev_id, flags=3)   # read-write
+            ok(cu.cuMemSetAccess(u64(base.value + G), size(n), ctypes.byref(acc),
+                                 size(1)), "cuMemSetAccess")
+            ptr = base.value + G + (n - t.nbytes if at_end else 0)
+            f = torch.as_tensor(_CudaArray(ptr, t), device=t.device)
+            assert f.data_ptr() == ptr
+            f.copy_(t)
+            out.append(f)
+        torch.cuda.synchronize()
+        yield out
+    finally:
+        torch.cuda.synchronize()
+        for base, reserved, h, mapped in reversed(held):
+            if mapped:
+                cu.cuMemUnmap(u64(base + G), size(mapped))
+            if h is not None:
+                cu.cuMemRelease(u64(h))
+            cu.cuMemAddressFree(u64(base), size(reserved))
+
+
+@pytest.mark.parametrize("M,B,C", [(500, 22, 11), (1025, 17, 40), (5000, 90, 11),
+                                   (29056, 5, 11)])
+@pytest.mark.parametrize("at_end", [True, False], ids=["fence_after", "fence_before"])
+def test_cuda_route_commit_stays_inside_its_buffers(dev, M, B, C, at_end):
+    """Every input and output of both variants lies flush against a page
+    that is never mapped, so one byte read or written past either end of a
+    buffer faults; then the outputs equal the plain version.  M=1025 leaves
+    all but one server of the last strip past M, M=500 the end of the only
+    one; [M, 3] and [3] rates, prio given and absent, with a tail."""
+    x = _case(M, M, B, C)
+    rng = np.random.default_rng(M + 1)
+    valid = valid_patterns(B, B / 4, rng)["gaps"]
+    cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    for inv in (x["inv"], np.array([10.0, 20.0, 50.0], np.float32)):
+        for kw in ({"cls": cls, "prio": x["prio"]}, {"cls": cls},
+                   {k: x[k] for k in ("cand_idx", "cand_cls", "cand_valid")}):
+            args = [t(x["Q"]), t(valid), t(inv)]
+            kw = {k: t(v) for k, v in kw.items()}
+            plain = route_commit_ref(*args, **kw)
+            garbage = [torch.full_like(o, 7).to(dev) for o in plain]
+            with _fenced([a.to(dev) for a in args + list(kw.values())] + garbage,
+                         at_end) as f:
+                ins, outs = f[:len(args) + len(kw)], f[len(args) + len(kw):]
+                launch(*ins[:3], outs, **dict(zip(kw, ins[3:])))
+                torch.cuda.synchronize()
+                got = [o.cpu() for o in outs]
+            for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, got):
+                assert torch.equal(a, b), (sorted(kw), inv.shape, name)
 
 
 def test_cuda_launch_counter_and_input_checks(dev):

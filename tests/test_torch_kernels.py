@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cases import valid_patterns
 from repro.core import cluster as jcl
 from repro.core import policies as jpol
 from repro.kernels import invrates as jinv
@@ -178,6 +179,35 @@ def test_route_commit_all_dead_and_no_valid_arrivals():
     cls = rng.integers(0, 3, (B, M)).astype(np.int32)
     _assert_equal(*_both(Q, np.ones(B, bool), inv, cls=cls))
     _assert_equal(*_both(Q, np.zeros(B, bool), np.ones(3, np.float32), cls=cls))
+
+
+@pytest.mark.parametrize("pattern", ["none", "last", "first", "poisson", "gaps"])
+@pytest.mark.parametrize("variant", ["full", "pod"])
+@pytest.mark.parametrize("lattice", [True, False])
+def test_route_commit_valid_patterns_match_jax(pattern, variant, lattice):
+    """The split at the last valid arrival means what the JAX kernel means
+    on every valid pattern, with class-3 entries (an all-class-3 row in the
+    full variant): lattice rates to the bit, heterogeneous rates with dead
+    entries to rtol 1e-6 (the reference kernel's summation order)."""
+    rng = np.random.default_rng(17)
+    M, B, C = 40, 12, 11
+    Q = rng.integers(0, 4, (M, 3)).astype(np.int32)
+    if lattice:
+        inv = np.array([10.0, 20.0, 50.0], np.float32)
+    else:
+        inv = np.exp(rng.uniform(np.log(1e-2), np.log(1e2), (M, 3))).astype(np.float32)
+        inv[rng.choice(M, size=M // 8, replace=False)] = np.inf
+        inv[rng.random(M) < 0.3, 1] = np.inf
+    valid = valid_patterns(B, B / 4, rng)[pattern]
+    if variant == "full":
+        cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+        cls[B // 2] = 3
+        kw = dict(cls=cls, prio=rng.permutation(M).astype(np.int32))
+    else:
+        kw = dict(cand_idx=rng.integers(0, M, (B, C)).astype(np.int32),
+                  cand_cls=rng.integers(0, 4, (B, C)).astype(np.int32),
+                  cand_valid=(rng.random((B, C)) < 0.85).astype(np.int32))
+    _assert_equal(*_both(Q, valid, inv, **kw), rtol=0.0 if lattice else 1e-6)
 
 
 def test_route_commit_wseq_matches_jax():
