@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py            # the full check (one card)
     python3 chip_smoke.py --quick    # a short first run: build, kernels, T/20
-    python3 chip_smoke.py --profile  # only the slot profile and route_commit's
-                                     # time at every valid-prefix length
+    python3 chip_smoke.py --profile  # only timings: the slot profile,
+                                     # route_commit at every valid-prefix
+                                     # length, the snapshot kernels, the
+                                     # complexity table and the tick's
+                                     # route -> queue_update sequence
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
-     every source under src/repro_torch/kernels/csrc/, all at once.
+     every source under src/repro_torch/kernels/csrc/, all at once, and
+     prints each kernel's registers and shared memory (-Xptxas -v).
   2. kernels against their plain PyTorch versions on the card, at the
      shapes their paths use (and route_commit at the largest M its wrapper
      accepts), with homogeneous, heterogeneous (dead-entry) and all-dead
@@ -16,7 +20,8 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      pattern of route_commit's valid mask); outputs must be equal to the
      bit.  Each is timed with CUDA events beside its bound and its plain
      version's time; route_commit also per sequential step, at two valid
-     prefixes.
+     prefixes; the snapshot kernels (up to M=16000) each behind a plain
+     PyTorch kernel, as on the routing tick.
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size; then
      Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000.  The
@@ -24,7 +29,9 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      route_commit must launch once per slot.
   4. complexity (paper §IV-C), on the port's public functions: probes per
      decision; microseconds per routing decision of weighted_argmin (O(M))
-     and pod_route (O(d)) as M grows; and 200 snapshot routing ticks
+     and pod_route (O(d)) as M grows; the device time of the tick's
+     sequence route -> class gather -> slot < n -> queue_update at M=500
+     and 5000; and 200 snapshot routing ticks
      (sample -> classes -> route -> queue_update) of BP and BP-Pod at M=500
      and M=5000, checking Q and W after every tick and one launch per call.
 It prints the kernels' JSON line, the card's name and power limit, and last
@@ -64,7 +71,8 @@ NO_LIBRARY = {
                  "and takes a first-slot argmin",
     "queue_update": "no single PyTorch call scatters the commits and sums "
                     "the weighted rows"}
-SNAPSHOT_SHAPES = [(500, 256, 11), (5000, 256, 11), (8192, 256, 11)]
+SNAPSHOT_SHAPES = [(500, 256, 11), (5000, 256, 11), (8192, 256, 11),
+                   (16000, 256, 11)]
 
 
 def log(*a):
@@ -122,6 +130,17 @@ def device_time_ms(fn, iters: int = 500, warmup: int = 20) -> float:
             return start.elapsed_time(end) / iters
         cycles *= 4
     fail("the host could not enqueue the timed calls ahead of the card")
+
+
+def device_time_behind_ms(fn, iters: int = 500) -> float:
+    """Mean device milliseconds a call of ``fn`` adds behind a plain PyTorch
+    kernel, as on the routing tick, where a PyTorch kernel runs just before
+    each snapshot kernel: (kernel, fn) back to back less the kernel alone.
+    Back to back with itself, a dependent launch of ``fn`` could overlap its
+    own previous call; a PyTorch kernel never lets its dependents start early."""
+    x = torch.zeros(1, device="cuda")
+    step = lambda: x.add_(1)
+    return device_time_ms(lambda: (step(), fn()), iters) - device_time_ms(step, iters)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -383,10 +402,10 @@ def snapshot_bound(name: str, x: dict):
                     + 16 * M, 5 * M + B)
 
 
-def check_snapshot_kernels(dev, quick: bool) -> dict:
+def check_snapshot_kernels(dev) -> dict:
     """Each snapshot kernel against its plain version on tie-forcing
-    batteries, then timed at the complexity benchmark's inputs."""
-    rows, err = {}, {}
+    batteries.  Returns the largest float difference seen, by kernel."""
+    err = {}
     for M, B, C in SNAPSHOT_SHAPES:
         for hetero in (False, True):
             for seed in range(2):
@@ -411,10 +430,19 @@ def check_snapshot_kernels(dev, quick: bool) -> dict:
                     f"{'hetero' if hetero else 'homo  '} seed={seed}: "
                     f"weighted_argmin (f32, bf16), pod_route (f32, bf16) and "
                     f"queue_update equal to their plain versions")
+    return err
+
+
+def time_snapshot_kernels(dev, quick: bool) -> dict:
+    """Each snapshot kernel at the complexity benchmark's inputs: device
+    time behind a plain PyTorch kernel, beside its bound and its plain
+    version's time."""
+    rows = {}
+    for M, B, C in SNAPSHOT_SHAPES:
         x = snapshot_timing_inputs(M, B, C, dev)
         for name, (fn, plain, launch, args, outs) in snapshot_calls(x).items():
-            k_ms = device_time_ms(lambda: launch(*args, *outs),
-                                  200 if quick else 500)
+            k_ms = device_time_behind_ms(lambda: launch(*args, *outs),
+                                         200 if quick else 500)
             p_ms = cuda_time_ms(lambda: plain(*args), 5 if quick else 20, warmup=2)
             b_ms, b_by = snapshot_bound(name, x)
             log(f"  {name} M={M} B={B}{f' C={C}' if name == 'pod_route' else ''}: "
@@ -422,8 +450,6 @@ def check_snapshot_kernels(dev, quick: bool) -> dict:
                 f"({b_by})  library n/a ({NO_LIBRARY[name]})")
             rows[(name, M)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                    bound_by=b_by, B=B, C=C)
-    for (name, _), r in rows.items():
-        r["max_abs_err"] = err[name]
     return rows
 
 
@@ -532,7 +558,7 @@ def complexity_probes() -> None:
 
 def complexity_per_decision(dev, quick: bool) -> list:
     """Microseconds per routing decision, B=256 tasks a call, C=11: the
-    kernel alone on the card (device time, calls back to back) and the
+    kernel on the card (device time behind a plain PyTorch kernel) and the
     public function as a Python caller sees it (host wall clock)."""
     B, C = 256, 11
     iters = 100 if quick else 400
@@ -547,7 +573,7 @@ def complexity_per_decision(dev, quick: bool) -> list:
             got, want = fn(*args), plain(*args)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 fail(f"{name} M={M}: differs from the plain version")
-            dev_ms = device_time_ms(lambda: launch(*args, *outs), iters)
+            dev_ms = device_time_behind_ms(lambda: launch(*args, *outs), iters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -562,6 +588,60 @@ def complexity_per_decision(dev, quick: bool) -> list:
     return rows
 
 
+def route_and_commit(route: str, Q, W, inv, cls, cand, slot, n: int):
+    """The part of a snapshot routing tick from the routing kernel on:
+    route the batch (weighted_argmin over cls, or pod_route over the
+    candidates ``cand``), take each task's class at its server, and commit
+    the first n tasks with queue_update.  Returns the next (Q, W)."""
+    from repro_torch.kernels import pod_route, queue_update, weighted_argmin
+    if route == "weighted_argmin":
+        sel, _ = weighted_argmin(W, cls, inv)
+        sel_cls = cls.gather(1, sel.long()[:, None])[:, 0]
+    else:
+        ci, cc, cv = cand
+        sel, _ = pod_route(W, ci, cc, cv, inv)
+        first = (ci == sel[:, None]).to(torch.int32).argmax(dim=1)
+        sel_cls = cc.gather(1, first[:, None])[:, 0]
+    return queue_update(Q, sel, sel_cls, slot < n, inv)
+
+
+def tick_times(dev, quick: bool) -> None:
+    """Device us of route_and_commit, the sequence the routing kernel and
+    queue_update sit in on a routing tick (route -> class gather ->
+    slot < n -> queue_update), 100 back to back behind the spin on one
+    tick's inputs, B=256, at the ticks' two clusters; its Q and W must
+    equal the same function's on the CPU, where it runs the plain versions.
+    (A tick is 5-7 launches, and the card queues about a thousand: more
+    ticks would stall the host behind the spin.)"""
+    from repro_torch.core import (Cluster, PodSpec, Rates, locality_class,
+                                  pod_candidates, safe_inv_rates, sample_locals)
+    B, iters = 256, 50 if quick else 100
+    for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        inv = safe_inv_rates(Rates(0.01, 0.005, 0.002).as_array(dev))
+        locals_ = sample_locals(gen, cl, B, device=dev)
+        cls = locality_class(cl, locals_)
+        ci, cc, cv = pod_candidates(gen, cl, locals_, cls, PodSpec(2, 6))
+        args = dict(Q=torch.randint(0, 50, (cl.M, 3), generator=gen, device=dev,
+                                    dtype=torch.int32),
+                    W=torch.rand(cl.M, generator=gen, device=dev) * 100, inv=inv,
+                    cls=cls, cand=(ci, cc.contiguous(), cv),
+                    slot=torch.arange(B, device=dev), n=3 * B // 4)
+        cpu = {k: v.cpu() if torch.is_tensor(v) else
+               tuple(t.cpu() for t in v) if isinstance(v, tuple) else v
+               for k, v in args.items()}
+        for route in ("weighted_argmin", "pod_route"):
+            ms = device_time_ms(lambda: route_and_commit(route, **args), iters)
+            got = route_and_commit(route, **args)
+            want = route_and_commit(route, **cpu)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+                fail(f"{route} -> queue_update M={cl.M}: differs from the plain versions")
+            algo = "BP" if route == "weighted_argmin" else "BP-Pod"
+            log(f"  tick {algo:6s} M={cl.M} B={B}: route -> class gather -> slot < n "
+                f"-> queue_update {ms * 1e3:.4f} us device (Q and W equal to the "
+                f"plain versions)")
+
+
 def routing_ticks(dev, ticks: int = 200) -> dict:
     """Snapshot routing ticks of BP and BP-Pod: sample_locals ->
     locality_class -> weighted_argmin, or -> pod_candidates -> pod_route
@@ -571,8 +651,7 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
     route_commit not at all.  Returns the launches of these runs."""
     from repro_torch.core import (Cluster, PodSpec, Rates, locality_class,
                                   pod_candidates, safe_inv_rates, sample_locals)
-    from repro_torch.kernels import (LAUNCHES, encode, pod_route, queue_update,
-                                     reset_launch_counts, weighted_argmin)
+    from repro_torch.kernels import LAUNCHES, encode, reset_launch_counts
     from repro_torch.kernels.ref import workload
 
     B, pod = 256, PodSpec(2, 6)
@@ -594,16 +673,11 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
                 n = int(rng.integers(B // 2, B + 1))
                 locals_ = sample_locals(gen, cl, B, device=dev)
                 cls = locality_class(cl, locals_)
-                if route == "weighted_argmin":
-                    sel, _ = weighted_argmin(W, cls, inv)
-                    sel_cls = cls.gather(1, sel.long()[:, None])[:, 0]
-                else:
+                cand = None
+                if route == "pod_route":
                     ci, cc, cv = pod_candidates(gen, cl, locals_, cls, pod)
-                    cc = cc.contiguous()
-                    sel, _ = pod_route(W, ci, cc, cv, inv)
-                    first = (ci == sel[:, None]).to(torch.int32).argmax(dim=1)
-                    sel_cls = cc.gather(1, first[:, None])[:, 0]
-                Q, W = queue_update(Q, sel, sel_cls, slot < n, inv)
+                    cand = (ci, cc.contiguous(), cv)
+                Q, W = route_and_commit(route, Q, W, inv, cls, cand, slot, n)
                 arrived += n
                 if int(Q.sum()) != arrived:
                     fail(f"{route} M={cl.M}: Q holds {int(Q.sum())} tasks, "
@@ -698,8 +772,10 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="short first run: fewer timing launches, T/20")
     ap.add_argument("--profile", action="store_true",
-                    help="only build, profile where a slot's time goes and "
-                         "time route_commit at every valid-prefix length")
+                    help="only build and time: profile where a slot's time "
+                         "goes, route_commit at every valid-prefix length, "
+                         "the snapshot kernels, the complexity table and the "
+                         "tick's route -> queue_update sequence")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -725,11 +801,15 @@ def main() -> int:
     if args.profile:
         profile_slots(dev)
         sweep_route_commit(dev)
+        time_snapshot_kernels(dev, False)
+        complexity_per_decision(dev, False)
+        tick_times(dev, False)
         return 0
 
     log("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
-    snap = check_snapshot_kernels(dev, args.quick)
+    err = check_snapshot_kernels(dev)
+    snap = time_snapshot_kernels(dev, args.quick)
     log("[3] simulator")
     check_small_run_matches_cpu(dev)
     launches = run_simulations(dev, args.quick)
@@ -738,6 +818,8 @@ def main() -> int:
     log("[4] time per routing decision, O(M) weighted_argmin against O(d) "
         "pod_route (ratio = BP / BP-Pod)")
     complexity_per_decision(dev, args.quick)
+    log("[4] the tick's route -> queue_update sequence, device time")
+    tick_times(dev, args.quick)
     log("[4] snapshot routing ticks")
     launches.update(routing_ticks(dev))
 
@@ -762,7 +844,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             shape=f"M=500 B={r['B']}" + (f" C={r['C']}" if name == "pod_route" else ""),
             by_M={str(M): {k: snap[(name, M)][k] for k in ("ms", "plain_ms", "bound_ms")}

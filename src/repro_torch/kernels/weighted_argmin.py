@@ -18,7 +18,7 @@ from . import build
 from .invrates import LAUNCHES, check, check_inv_rates, use_kernel
 from .ref import weighted_argmin_ref
 
-THREADS = 256
+THREADS = 256           # a block a task row (the kernel takes at most 256)
 W_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p

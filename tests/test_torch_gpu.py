@@ -18,7 +18,9 @@ from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
 from repro_torch.core.simulator import BP_POD_DEFAULT, SlotDraws
 from repro_torch.kernels import (pod_route_ref, queue_update_ref,
                                  route_commit_ref, weighted_argmin_ref)
+from repro_torch.kernels.queue_update import launch as queue_update_launch
 from repro_torch.kernels.route_commit import launch
+from repro_torch.kernels.weighted_argmin import launch as weighted_argmin_launch
 
 pytestmark = pytest.mark.gpu
 
@@ -131,7 +133,8 @@ class _CudaArray:
     and dtype (zero-copy, through ``__cuda_array_interface__``)."""
 
     def __init__(self, ptr: int, like: torch.Tensor):
-        typestr = {torch.int32: "<i4", torch.float32: "<f4", torch.bool: "|b1"}
+        typestr = {torch.int32: "<i4", torch.int16: "<i2", torch.float32: "<f4",
+                   torch.bool: "|b1"}
         self.__cuda_array_interface__ = {
             "shape": tuple(like.shape), "typestr": typestr[like.dtype],
             "data": (ptr, False), "strides": None, "version": 2}
@@ -313,6 +316,185 @@ def test_cuda_snapshot_wrappers_count_only_their_own_launches_and_check_inputs(d
                 with pytest.raises(ValueError):
                     kernel(*bad)
         assert sum(tk.LAUNCHES.values()) == 1, name
+
+
+# weighted_argmin splits a row at a thread's 4 servers (int4), a warp's
+# 128, the 1024 between a thread's loads and the 4096 of a batch of loads
+# (with 1, 32, 256 and 4096 when the row is not 16-byte aligned).
+_SPLITS = (4, 32, 128, 256, 1024, 4096, 8192)
+
+
+def _argmin_case(seed: int, M: int, B: int):
+    """W, cls and [M, 3] rates (dead servers and columns) for
+    weighted_argmin, with row 0 all class 3 and, in every other row, equal
+    minima planted in pairs on both sides of a boundary: of a chunk, of a
+    thread's four servers, of a warp's servers, or the last two servers.
+    Planted servers have W = 0 and finite rates (score 0, every other score
+    is positive), each row keeps only its pair (other planted slots get
+    class 3), so the lower index of the pair must win."""
+    rng = np.random.default_rng(seed)
+    inv = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), (4, 3)))
+    inv = inv[rng.integers(4, size=M)].astype(np.float32)
+    inv[rng.choice(M, size=max(1, M // 8), replace=False)] = np.inf
+    inv[rng.random(M) < 0.3, rng.integers(3)] = np.inf
+    W = rng.uniform(1, 100, M).astype(np.float32)
+    cls = rng.integers(0, 4, (B, M)).astype(np.int32)
+    pairs = [(p - 1, p) for p in (*_SPLITS, M - 1) if 0 < p < M]
+    planted = sorted({m for pair in pairs for m in pair})
+    W[planted] = 0.0
+    inv[planted] = [1.0, 2.0, 4.0]
+    for b in range(1, B):
+        cls[b, planted] = 3
+        pair = list(pairs[b % len(pairs)])
+        cls[b, pair] = rng.integers(0, 3, 2)
+    cls[0] = 3
+    return W, cls, inv
+
+
+def _assert_argmin_equal(dev, W, cls, inv):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    for w in (t(W), t(W).to(torch.bfloat16)):
+        for rates in (t(inv), t(np.array([10.0, np.inf, 50.0], np.float32))):
+            want = weighted_argmin_ref(w, t(cls), rates)
+            got = tk.weighted_argmin(w.to(dev), t(cls).to(dev), rates.to(dev))
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(want, got)):
+                assert torch.equal(a, b.cpu()), (w.dtype, tuple(rates.shape), i)
+
+
+@pytest.mark.parametrize("M", [64, 129, 1025, 8192, 10001, 16000])
+@pytest.mark.parametrize("B", [1, 3, 131, 133, 256, 300])
+def test_cuda_weighted_argmin_battery(dev, B, M):
+    """Bit-equal to the plain version for B from 1 to 300, for M that is
+    not a multiple of 4 (int loads) and rows of several batches of loads
+    (M=8192 and up); float32
+    and bfloat16 W, [M, 3] and [3] rates with dead entries, an all-class-3
+    row and ties planted across every split of M."""
+    _assert_argmin_equal(dev, *_argmin_case(B + M, M, B))
+
+
+@pytest.mark.parametrize("M,B", [(129, 3), (1025, 133), (8192, 256), (16000, 131)])
+@pytest.mark.parametrize("at_end", [True, False], ids=["fence_after", "fence_before"])
+def test_cuda_weighted_argmin_stays_inside_its_buffers(dev, M, B, at_end):
+    """W, cls, the rates and the outputs each lie flush against a page that
+    is never mapped, so a load one byte past either end of a buffer
+    faults; then the outputs equal the plain version.  M=129 with the
+    fence after puts cls off 16-byte alignment (the int loads)."""
+    W, cls, inv = _argmin_case(M, M, B)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    for w in (t(W), t(W).to(torch.bfloat16)):
+        for rates in (t(inv), t(np.array([10.0, np.inf, 50.0], np.float32))):
+            want = weighted_argmin_ref(w, t(cls), rates)
+            ins = [w.view(torch.int16) if w.dtype == torch.bfloat16 else w,
+                   t(cls), rates]
+            outs = [torch.full((B,), 7, dtype=torch.int32), torch.full((B,), 7.0)]
+            with _fenced([a.to(dev) for a in ins + outs], at_end) as f:
+                fw = f[0].view(torch.bfloat16) if w.dtype == torch.bfloat16 else f[0]
+                weighted_argmin_launch(fw, f[1], f[2], f[3], f[4])
+                torch.cuda.synchronize()
+                got = [f[3].cpu(), f[4].cpu()]
+            for i, (a, b) in enumerate(zip(want, got)):
+                assert torch.equal(a, b), (w.dtype, tuple(rates.shape), i)
+
+
+def _commit_case(seed: int, M: int, B: int):
+    rng = np.random.default_rng(seed)
+    x = _case(seed, M, B, 1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(x["Q"]), t(rng.integers(0, M, B).astype(np.int32)),
+            t(rng.integers(0, 4, B).astype(np.int32)), t(x["valid"]), t(x["inv"]))
+
+
+@pytest.mark.parametrize("M,B,one_server", [(500, 1000, True), (257, 700, True),
+                                            (1000, 256, False), (257, 3, False),
+                                            (8192, 300, False)])
+def test_cuda_queue_update_batches_and_tiles(dev, M, B, one_server):
+    """Bit-equal to the plain version when the batch is larger than a
+    block (every commit on one server, so one counter takes them all) and
+    when M is not a multiple of the 256-server tile; [M, 3] and [3] rates."""
+    Q, sel, sel_cls, valid, inv = _commit_case(M + B, M, B)
+    if one_server:
+        sel[:] = M // 2
+        sel[::7] = M                       # the pad server drops
+    for rates in (inv, torch.tensor([10.0, np.inf, 50.0])):
+        args = (Q, sel, sel_cls, valid, rates)
+        want = queue_update_ref(*args)
+        got = tk.queue_update(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert torch.equal(a, b.cpu()), (tuple(rates.shape), i)
+
+
+def test_cuda_queue_update_waits_for_the_kernel_in_front(dev):
+    """queue_update may start before the kernel in front of it has
+    finished (programmatic stream serialization) and must read nothing
+    before that kernel's writes land.  weighted_argmin at M=16000 writes
+    sel as its blocks end, into a buffer that holds a stale batch;
+    queue_update launched straight after must commit the new sel.  Then
+    an in-place PyTorch kernel writes Q right before each queue_update."""
+    M, B = 16000, 256
+    W, cls, inv = _argmin_case(3, M, B)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    W, cls, inv = t(W), t(cls), t(inv)
+    new_sel, _ = weighted_argmin_ref(W, cls, inv)
+    Q, _, sel_cls, valid, _ = _commit_case(5, M, B)
+    stale = torch.full((B,), M - 1, dtype=torch.int32)
+    assert not torch.equal(stale, new_sel)
+    want = queue_update_ref(Q, new_sel, sel_cls, valid, inv)
+    d = {k: v.to(dev) for k, v in dict(W=W, cls=cls, inv=inv, Q=Q, sel_cls=sel_cls,
+                                      valid=valid, stale=stale).items()}
+    sel = torch.empty(B, dtype=torch.int32, device=dev)
+    val = torch.empty(B, device=dev)
+    Q_new = torch.empty_like(d["Q"])
+    W_new = torch.empty(M, device=dev)
+    for _ in range(20):
+        sel.copy_(d["stale"])
+        weighted_argmin_launch(d["W"], d["cls"], d["inv"], sel, val)
+        queue_update_launch(d["Q"], sel, d["sel_cls"], d["valid"], d["inv"], Q_new,
+                            W_new)
+        torch.cuda.synchronize()
+        assert torch.equal(Q_new.cpu(), want[0]) and torch.equal(W_new.cpu(), want[1])
+    Qd = d["Q"].clone()
+    for k in range(1, 21):
+        Qd.add_(1)
+        queue_update_launch(Qd, sel, d["sel_cls"], d["valid"], d["inv"], Q_new, W_new)
+        torch.cuda.synchronize()
+        want = queue_update_ref(Q + k, new_sel, sel_cls, valid, inv)
+        assert torch.equal(Q_new.cpu(), want[0]) and torch.equal(W_new.cpu(), want[1])
+
+
+@pytest.mark.parametrize("route", ["weighted_argmin", "pod_route"])
+def test_cuda_routing_chain_equals_plain_chain(dev, route):
+    """50 snapshot routing ticks, route -> queue_update with Q and W fed
+    forward, on the card (no synchronisation between ticks) and on the
+    plain versions: equal to the bit after every tick."""
+    M, B, C = 500, 256, 11
+    rng = np.random.default_rng(11)
+    inv = torch.from_numpy(_case(11, M, B, C)["inv"])
+    state = {"cpu": (torch.zeros((M, 3), dtype=torch.int32), torch.zeros(M)),
+             "cuda": (torch.zeros((M, 3), dtype=torch.int32, device=dev),
+                      torch.zeros(M, device=dev))}
+    history = {"cpu": [], "cuda": []}
+    for _ in range(50):
+        valid = torch.from_numpy(np.arange(B) < rng.integers(B // 2, B + 1))
+        cls = torch.from_numpy(rng.integers(0, 3, (B, M)).astype(np.int32))
+        ci = torch.from_numpy(rng.integers(0, M, (B, C)).astype(np.int32))
+        cc = torch.from_numpy(rng.integers(0, 3, (B, C)).astype(np.int32))
+        cv = torch.from_numpy(rng.random((B, C)) < 0.9)
+        for where, d in (("cpu", "cpu"), ("cuda", dev)):
+            Q, W = state[where]
+            if route == "weighted_argmin":
+                sel, _ = tk.weighted_argmin(W, cls.to(d), inv.to(d))
+                sel_cls = cls.to(d).gather(1, sel.long()[:, None])[:, 0]
+            else:
+                sel, _ = tk.pod_route(W, ci.to(d), cc.to(d), cv.to(d), inv.to(d))
+                first = (ci.to(d) == sel[:, None]).to(torch.int32).argmax(dim=1)
+                sel_cls = cc.to(d).gather(1, first[:, None])[:, 0]
+            state[where] = tk.queue_update(Q, sel, sel_cls, valid.to(d), inv.to(d))
+            history[where].append(state[where])
+    torch.cuda.synchronize()
+    for tick, (a, b) in enumerate(zip(history["cpu"], history["cuda"])):
+        assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[1], b[1].cpu()), tick
 
 
 @pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod"])
