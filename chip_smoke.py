@@ -7,11 +7,13 @@
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
                                      # route -> queue_update sequence
+                                     # (with the launch floor)
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
-     every source under src/repro_torch/kernels/csrc/, all at once, and
-     prints each kernel's registers and shared memory (-Xptxas -v).
+     every source under src/repro_torch/kernels/csrc/ and the launch-floor
+     kernel (scripts/launch_floor.cu), all at once, and prints each
+     kernel's registers and shared memory (-Xptxas -v).
   2. kernels against their plain PyTorch versions on the card, at the
      shapes their paths use (and route_commit at the largest M its wrapper
      accepts), with homogeneous, heterogeneous (dead-entry) and all-dead
@@ -21,7 +23,9 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      bit.  Each is timed with CUDA events beside its bound and its plain
      version's time; route_commit also per sequential step, at two valid
      prefixes; the snapshot kernels (up to M=16000) each behind a plain
-     PyTorch kernel, as on the routing tick.
+     PyTorch kernel, as on the routing tick, beside the launch floor: a
+     kernel that only waits and stores, timed the same way, launched
+     plainly and as a dependent launch.
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size; then
      Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000.  The
@@ -40,6 +44,7 @@ It prints the kernels' JSON line, the card's name and power limit, and last
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -53,6 +58,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 peak outside tensor cores
 CSRC = "src/repro_torch/kernels/csrc/"
+FLOOR_SOURCE = Path(__file__).resolve().parent / "scripts" / "launch_floor.cu"
+FLOOR_GRIDS = ((1, 32), (132, 128))     # (blocks, threads): one warp; a block an SM
 SOURCES = {"route_commit_full": CSRC + "route_commit.cu",
            "route_commit_pod": CSRC + "route_commit.cu",
            "weighted_argmin": CSRC + "snapshot_route.cu",
@@ -141,6 +148,36 @@ def device_time_behind_ms(fn, iters: int = 500) -> float:
     x = torch.zeros(1, device="cuda")
     step = lambda: x.add_(1)
     return device_time_ms(lambda: (step(), fn()), iters) - device_time_ms(step, iters)
+
+
+def load_floor(path: Path):
+    """launch(out, blocks, threads, dependent) of the launch-floor kernel."""
+    fn = ctypes.CDLL(str(path)).launch_floor
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(out, blocks: int, threads: int, dependent: bool):
+        err = fn(out.data_ptr(), blocks, threads, int(dependent),
+                 ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+        if err != 0:
+            fail(f"launch_floor failed: CUDA error {err}")
+    return launch
+
+
+def launch_floor_ms(floor, dev, iters: int = 500) -> dict:
+    """{"plain"/"dependent": [ms at each grid of FLOOR_GRIDS]}: device time
+    the launch-floor kernel adds behind a plain PyTorch kernel, timed as
+    the snapshot kernels are."""
+    out = torch.empty(max(b for b, _ in FLOOR_GRIDS), dtype=torch.int32, device=dev)
+    return {mode: [device_time_behind_ms(
+                lambda: floor(out, blocks, threads, mode == "dependent"), iters)
+                   for blocks, threads in FLOOR_GRIDS]
+            for mode in ("plain", "dependent")}
+
+
+def floor_text(f: dict) -> str:
+    return (f"dependent {' / '.join(f'{t:.6f}' for t in f['dependent'])} ms, "
+            f"plain {' / '.join(f'{t:.6f}' for t in f['plain'])} ms")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -433,23 +470,28 @@ def check_snapshot_kernels(dev) -> dict:
     return err
 
 
-def time_snapshot_kernels(dev, quick: bool) -> dict:
+def time_snapshot_kernels(dev, quick: bool, floor) -> dict:
     """Each snapshot kernel at the complexity benchmark's inputs: device
-    time behind a plain PyTorch kernel, beside its bound and its plain
-    version's time."""
+    time behind a plain PyTorch kernel, beside its bound, its plain
+    version's time and the launch floor (``launch_floor_ms``)."""
+    iters = 200 if quick else 500
+    floors = launch_floor_ms(floor, dev, iters)
+    grids = " / ".join(f"{b} block{'s' * (b > 1)} of {t}" for b, t in FLOOR_GRIDS)
+    log(f"  launch floor (griddepcontrol.wait + one store) behind a plain "
+        f"PyTorch kernel, {grids} threads: {floor_text(floors)}")
     rows = {}
     for M, B, C in SNAPSHOT_SHAPES:
         x = snapshot_timing_inputs(M, B, C, dev)
         for name, (fn, plain, launch, args, outs) in snapshot_calls(x).items():
-            k_ms = device_time_behind_ms(lambda: launch(*args, *outs),
-                                         200 if quick else 500)
+            k_ms = device_time_behind_ms(lambda: launch(*args, *outs), iters)
             p_ms = cuda_time_ms(lambda: plain(*args), 5 if quick else 20, warmup=2)
             b_ms, b_by = snapshot_bound(name, x)
             log(f"  {name} M={M} B={B}{f' C={C}' if name == 'pod_route' else ''}: "
                 f"kernel {k_ms:.6f} ms  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms "
-                f"({b_by})  library n/a ({NO_LIBRARY[name]})")
+                f"({b_by})  floor {floor_text(floors)}  "
+                f"library n/a ({NO_LIBRARY[name]})")
             rows[(name, M)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                   bound_by=b_by, B=B, C=C)
+                                   bound_by=b_by, B=B, C=C, floor_ms=floors)
     return rows
 
 
@@ -794,14 +836,18 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
+    with ThreadPoolExecutor(len(names) + 1) as pool:     # one nvcc per source
+        floor_lib = pool.submit(build.build, "launch_floor", verbose=True,
+                                source=FLOOR_SOURCE)
         libs = list(pool.map(lambda n: build.build(n, verbose=True), names))
+        libs.append(floor_lib.result())
+    floor = load_floor(libs[-1])
     log(f"[1] built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_slots(dev)
         sweep_route_commit(dev)
-        time_snapshot_kernels(dev, False)
+        time_snapshot_kernels(dev, False, floor)
         complexity_per_decision(dev, False)
         tick_times(dev, False)
         return 0
@@ -809,7 +855,7 @@ def main() -> int:
     log("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
     err = check_snapshot_kernels(dev)
-    snap = time_snapshot_kernels(dev, args.quick)
+    snap = time_snapshot_kernels(dev, args.quick, floor)
     log("[3] simulator")
     check_small_run_matches_cpu(dev)
     launches = run_simulations(dev, args.quick)
@@ -846,6 +892,7 @@ def main() -> int:
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            floor_ms=r["floor_ms"],
             shape=f"M=500 B={r['B']}" + (f" C={r['C']}" if name == "pod_route" else ""),
             by_M={str(M): {k: snap[(name, M)][k] for k in ("ms", "plain_ms", "bound_ms")}
                   for M, _, _ in SNAPSHOT_SHAPES}))

@@ -39,22 +39,27 @@ def find_nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    """Where the built library of ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+def library_path(name: str, source: Path | None = None) -> Path:
+    """Where the built library of ``csrc/<name>.cu`` (or of ``source``)
+    lives."""
+    src = (source or CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
+def build(name: str, verbose: bool = False, source: Path | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+
+    ``source`` builds another file under ``name``: the smoke's launch
+    floor, which the port itself never loads."""
+    out = library_path(name, source)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC / f"{name}.cu")]
+           "-Xcompiler", "-fPIC", "-o", tmp, str(source or CSRC / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)

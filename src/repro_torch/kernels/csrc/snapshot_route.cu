@@ -18,16 +18,16 @@
 // W is widened by shifting its bits up 16, which is exact, as the plain
 // version's cast is.
 //
-// weighted_argmin and queue_update are launched with programmatic stream
-// serialization (programmatic dependent launch): their blocks may start
-// while the kernel in front of them in the stream is still finishing, and
-// each waits (griddepcontrol.wait) before its first global read, since
-// that kernel may have written any of its inputs.  On a routing tick the
-// kernel in front of each is a PyTorch one, which never lets its
-// dependents start early; the launch still saves ~1 us a kernel on the
-// H100 (PERF.md §6).  None of these kernels lets its own dependents start
-// early (griddepcontrol.launch_dependents): on a tick a PyTorch kernel
-// follows each routing kernel, and such a trigger measured no gain there.
+// All three are launched with programmatic stream serialization
+// (programmatic dependent launch): their blocks may start while the kernel
+// in front of them in the stream is still finishing, and each waits
+// (griddepcontrol.wait) before its first global read, since that kernel
+// may have written any of its inputs.  On a routing tick the kernel in
+// front of each is a PyTorch one, which never lets its dependents start
+// early; the launch still saves ~1 us a kernel on the H100 (PERF.md §6).
+// None of these kernels lets its own dependents start early
+// (griddepcontrol.launch_dependents): on a tick a PyTorch kernel follows
+// each routing kernel, and such a trigger measured no gain there.
 //
 // weighted_argmin -- replaces src/repro/kernels/weighted_argmin.py:45
 // `_kernel` (pallas_call at :98).
@@ -55,10 +55,26 @@
 //   W[cand] * inv[cand, cls] (an invalid slot, or a candidate outside
 //   0..M-1, scores +inf); sel[b] = cand_idx[b, c*], val[b] = its score.
 //   Bound: B*C*9 bytes of candidate lists plus the W and inv entries they
-//   name (~30 KB at B = 256, C = 11): launch latency, not bandwidth.  A
-//   warp per task, a lane per candidate (looping when C > 32), exact
-//   indexed loads of W[cand] and inv[cand, cls] where the TPU kernel used
-//   a one-hot matmul, and a lexicographic (score, slot) warp reduction.
+//   name (~30 KB at B = 256, C = 11, ~0.01 us at 3.35 TB/s), so what it
+//   costs is its launch and its chain of dependent memory round trips.
+//   The dependent launch hides most of the first.  The chain is two round
+//   trips: right after griddepcontrol.wait a lane issues every load of its
+//   slots at once (cand_idx, cand_cls, valid, and the [3] rates), with no
+//   branch; then, in one batch, W[m] and all three [M, 3] rates of m, with
+//   m clamped into 0..M-1, so no address waits on the class and no load
+//   leaves its buffer.  The lane's rate is selected in registers
+//   (class_score) and the score masked to +inf for an invalid slot or an
+//   outside candidate.  kPodLanes lanes a task, each loading kPodSlots
+//   slots a batch (a row of up to 16 candidates is one batch; longer rows
+//   loop, two more round trips a batch); a lexicographic (score, slot)
+//   reduction over the task's lanes (xor shuffles that stay inside its
+//   segment of the warp) carries the winner's candidate index, so nothing
+//   is read after it.  Eight lanes a task (four tasks a warp, two slots a
+//   lane at C = 11, three shuffle rounds) in blocks of 128 threads ran
+//   fastest of the layouts measured on the H100 (PERF.md §6):
+//   0.07-0.17 us ahead of 16 or 32 lanes a task and of 4, and 0.6-1.1 us
+//   ahead of 2 lanes or a thread a task, whose strided loads of 8-16 slots
+//   a thread cost more than the shuffles they save.
 //
 // queue_update -- replaces src/repro/kernels/queue_update.py:37 `_kernel`
 // (pallas_call at :86).
@@ -87,6 +103,9 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kArgminThreads = 256;       // threads a weighted_argmin block
 constexpr int kTile = 256;                // servers (threads) a queue_update block owns
+constexpr int kPodMaxThreads = 256;       // threads a pod_route block, at most
+constexpr int kPodLanes = 8;              // lanes a pod_route task: a quarter warp
+constexpr int kPodSlots = 2;              // slots a lane loads a batch: 16 a task
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
@@ -101,15 +120,6 @@ __device__ __forceinline__ float load_w(const void* __restrict__ W, int m) {
 
 __device__ __forceinline__ float finite_rate(float r) {
   return isfinite(r) ? r : 0.0f;
-}
-
-// inv[m, lane(c)] * w, or +inf for a dead entry or a class >= 3.
-__device__ __forceinline__ float score(float w, const float* __restrict__ inv,
-                                       int inv_stride, int m, int c) {
-  int lane = (c == 0 || c == 1) ? c : 2;
-  float r = inv[static_cast<long>(m) * inv_stride + lane];
-  if (c >= 3 || !isfinite(r)) return inf();
-  return __fmul_rn(w, r);
 }
 
 // (bv, bi) <- the lexicographic minimum of (bv, bi) and (v, i).
@@ -249,30 +259,82 @@ weighted_argmin_kernel(const void* __restrict__ W, const int* __restrict__ cls,
   }
 }
 
-template <bool kBf16>
-__global__ void pod_route_kernel(const void* __restrict__ W,
-                                 const int* __restrict__ cand_idx,
-                                 const int* __restrict__ cand_cls,
-                                 const uint8_t* __restrict__ valid,
-                                 const float* __restrict__ inv, int inv_stride,
-                                 int M, int B, int C, int* __restrict__ sel,
-                                 float* __restrict__ val) {
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;                 // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const long row = static_cast<long>(b) * C;
-  float bv = inf();
-  int bs = INT_MAX;
-  for (int c = lane; c < C; c += 32) {
-    int m = cand_idx[row + c];
-    float s = inf();
-    if (valid[row + c] && m >= 0 && m < M)
-      s = score(load_w<kBf16>(W, m), inv, inv_stride, m, cand_cls[row + c]);
-    take(bv, bs, s, c);
+// (bv, bs, bm) <- the lexicographic (score, slot) minimum of itself and
+// (v, s), carrying the slot's candidate index m.
+__device__ __forceinline__ void take_slot(float& bv, int& bs, int& bm, float v,
+                                          int s, int m) {
+  if (v < bv || (v == bv && s < bs)) {
+    bv = v;
+    bs = s;
+    bm = m;
   }
-  warp_take(bv, bs);
-  if (lane == 0) {
-    sel[b] = cand_idx[row + bs];
+}
+
+template <bool kBf16, bool kPerServer>
+__global__ void __launch_bounds__(kPodMaxThreads)
+pod_route_kernel(const void* __restrict__ W, const int* __restrict__ cand_idx,
+                 const int* __restrict__ cand_cls,
+                 const uint8_t* __restrict__ valid,
+                 const float* __restrict__ inv, int M, int B, int C,
+                 int* __restrict__ sel, float* __restrict__ val) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = t / kPodLanes;
+  const int j = t % kPodLanes;         // the lane's place in its task
+  // A lane past the last task reads the last row and writes nothing: every
+  // lane of a warp takes part in the shuffles.
+  const long row = static_cast<long>(min(b, B - 1)) * C;
+  float bv = inf();
+  int bs = INT_MAX, bm = 0;
+  // The kernel in front may have written any input: no global read before
+  // this point.
+  wait_for_primary();
+  float h0 = 0.0f, h1 = 0.0f, h2 = 0.0f;
+  if (!kPerServer) {
+    h0 = inv[0];
+    h1 = inv[1];
+    h2 = inv[2];
+  }
+  for (int c0 = 0; c0 < C; c0 += kPodLanes * kPodSlots) {
+    int m[kPodSlots], k[kPodSlots];
+    bool ok[kPodSlots];
+    float w[kPodSlots], r[kPerServer ? kPodSlots : 1][3];
+#pragma unroll
+    for (int u = 0; u < kPodSlots; ++u) {   // round trip 1: the lists
+      const long at = row + min(c0 + u * kPodLanes + j, C - 1);
+      m[u] = cand_idx[at];
+      k[u] = cand_cls[at];
+      ok[u] = valid[at] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPodSlots; ++u) {   // round trip 2: what they name
+      const int mc = min(max(m[u], 0), M - 1);
+      w[u] = load_w<kBf16>(W, mc);
+      if (kPerServer) {
+        r[kPerServer ? u : 0][0] = inv[3L * mc];
+        r[kPerServer ? u : 0][1] = inv[3L * mc + 1];
+        r[kPerServer ? u : 0][2] = inv[3L * mc + 2];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPodSlots; ++u) {
+      const int c = c0 + u * kPodLanes + j;
+      const float s = kPerServer
+          ? class_score(w[u], r[kPerServer ? u : 0][0], r[kPerServer ? u : 0][1],
+                        r[kPerServer ? u : 0][2], k[u])
+          : class_score(w[u], h0, h1, h2, k[u]);
+      const bool in = ok[u] && c < C && m[u] >= 0 && m[u] < M;
+      take_slot(bv, bs, bm, in ? s : inf(), c, m[u]);
+    }
+  }
+#pragma unroll
+  for (int off = kPodLanes / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, bv, off);
+    const int os = __shfl_xor_sync(kFull, bs, off);
+    const int om = __shfl_xor_sync(kFull, bm, off);
+    take_slot(bv, bs, bm, ov, os, om);
+  }
+  if (j == 0 && b < B) {
+    sel[b] = bm;
     val[b] = bv;
   }
 }
@@ -356,6 +418,17 @@ int launch_weighted_argmin(const void* W, const int* cls, const float* inv,
                           dim3(threads), 0, stream, W, cls, inv, M, vec, sel, val);
 }
 
+template <bool kBf16, bool kPerServer>
+int launch_pod_route(const void* W, const int* cand_idx, const int* cand_cls,
+                     const uint8_t* valid, const float* inv, int M, int B, int C,
+                     int* sel, float* val, int threads, cudaStream_t stream) {
+  const int blocks =
+      static_cast<int>((static_cast<long>(B) * kPodLanes + threads - 1) / threads);
+  return launch_dependent(pod_route_kernel<kBf16, kPerServer>, dim3(blocks),
+                          dim3(threads), 0, stream, W, cand_idx, cand_cls, valid,
+                          inv, M, B, C, sel, val);
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,20 +451,22 @@ int weighted_argmin(const void* W, int w_bf16, const int* cls, const float* inv,
 }
 
 // W: as weighted_argmin; cand_idx/cand_cls: [B, C] int32; valid: [B, C]
-// bool bytes.  B, C >= 1; threads a multiple of 32, at most 1024.
+// bool bytes.  B, C >= 1; threads a multiple of 32, at most 256.  Launched
+// with programmatic stream serialization.  Returns the launch's
+// cudaError_t.
 int pod_route(const void* W, int w_bf16, const int* cand_idx,
               const int* cand_cls, const uint8_t* valid, const float* inv,
               int inv_stride, int M, int B, int C, int* sel, float* val,
               int threads, cudaStream_t stream) {
-  int per_block = threads / 32;
-  int blocks = (B + per_block - 1) / per_block;
+  if (threads < 32 || threads > kPodMaxThreads || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (w_bf16)
-    pod_route_kernel<true><<<blocks, threads, 0, stream>>>(
-        W, cand_idx, cand_cls, valid, inv, inv_stride, M, B, C, sel, val);
-  else
-    pod_route_kernel<false><<<blocks, threads, 0, stream>>>(
-        W, cand_idx, cand_cls, valid, inv, inv_stride, M, B, C, sel, val);
-  return static_cast<int>(cudaGetLastError());
+    return inv_stride
+        ? launch_pod_route<true, true>(W, cand_idx, cand_cls, valid, inv, M, B, C, sel, val, threads, stream)
+        : launch_pod_route<true, false>(W, cand_idx, cand_cls, valid, inv, M, B, C, sel, val, threads, stream);
+  return inv_stride
+      ? launch_pod_route<false, true>(W, cand_idx, cand_cls, valid, inv, M, B, C, sel, val, threads, stream)
+      : launch_pod_route<false, false>(W, cand_idx, cand_cls, valid, inv, M, B, C, sel, val, threads, stream);
 }
 
 // Q, Qn: [M, 3] int32; sel/sel_cls: [B] int32; valid: [B] bool bytes;

@@ -6,7 +6,8 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 by ``build.py``); on a CPU tensor it runs the plain version
 ``ref.pod_route_ref``.  The two compute the same function, bit for bit.
 Where the TPU kernel gathered ``W[cand]`` and the rates with a one-hot
-matmul, the CUDA kernel loads them by index, as the plain version does.
+matmul, the CUDA kernel loads them by index, as the plain version does;
+it is a programmatic dependent launch (see the kernel source).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from .invrates import LAUNCHES, check, check_inv_rates, use_kernel
 from .ref import pod_route_ref
 from .weighted_argmin import W_DTYPES
 
-THREADS = 128           # four warps: four tasks a block
+THREADS = 128           # four warps; 8 lanes a task (kPodLanes), 16 tasks a block
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -13,3 +13,52 @@ def valid_patterns(B: int, lam: float, rng) -> dict:
     return {"none": np.zeros(B, bool), "last": np.arange(B) == B - 1,
             "first": np.arange(B) == 0,
             "poisson": np.arange(B) < min(B, rng.poisson(lam)), "gaps": gaps}
+
+
+# Slot splits of a pod_route row: a lane's slots, a segment of lanes, a
+# warp and a batch of loads (lower slot of each pair = split - 1).
+POD_SPLITS = (1, 2, 4, 8, 16, 32, 33, 64)
+
+
+def pod_route_case(seed: int, M: int, B: int, C: int, outside: bool = True):
+    """Tie-forcing pod_route inputs (numpy): W float32, cand_idx/cand_cls
+    [B, C] int32, valid [B, C] bool, [M, 3] float32 rates with dead servers
+    and dead columns.
+
+    Servers 0..3 (planted) have W = 0 and finite rates, so they score 0
+    and every other candidate scores above 0 (W in {1, 2.5, 77}) or +inf.
+    Even rows hold two different planted servers at the slots on both
+    sides of a split of the row (valid, classes 0..2): the lower slot must
+    win.  Odd rows repeat each candidate at the next slot, so equal scores
+    tie across slots.  With B >= 3 the last row has no valid slot and the
+    one before holds class 3 only.  With ``outside`` every third row holds
+    the candidates -1 (slot 0) and M (the last slot), valid: both score
+    +inf, and a row without a finite score gives its slot 0's candidate."""
+    rng = np.random.default_rng(seed)
+    planted = 4
+    W = rng.choice(np.array([1.0, 2.5, 77.0], np.float32), M)
+    W[:planted] = 0.0
+    pool = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), (4, 3)))
+    inv = pool[rng.integers(4, size=M)].astype(np.float32)
+    inv[rng.choice(M, size=max(1, M // 8), replace=False)] = np.inf
+    inv[rng.random(M) < 0.3, rng.integers(3)] = np.inf
+    inv[:planted] = [1.0, 2.0, 4.0]
+    ci = rng.integers(planted, M, (B, C)).astype(np.int32)
+    cc = rng.integers(0, 4, (B, C)).astype(np.int32)
+    cv = rng.random((B, C)) < 0.85
+    pairs = [(s - 1, s) for s in (*POD_SPLITS, C - 1) if 0 < s < C]
+    for b in range(B):
+        if b % 2 == 0 and pairs:
+            lo, hi = pairs[(b // 2) % len(pairs)]
+            ci[b, [lo, hi]] = rng.choice(planted, 2, replace=False)
+            cc[b, [lo, hi]] = rng.integers(0, 3, 2)
+            cv[b, [lo, hi]] = True
+        elif b % 2 == 1:
+            ci[b, 1::2] = ci[b, 0::2][:ci[b, 1::2].shape[0]]
+        if outside and b % 3 == 0:
+            ci[b, 0], ci[b, -1] = -1, M
+            cv[b, 0] = cv[b, -1] = True
+    if B >= 3:
+        cv[B - 1] = False
+        cc[B - 2] = 3
+    return W, ci, cc, cv, inv

@@ -7,17 +7,19 @@ no JAX (the card's machine has none).  Run it there with
 """
 import contextlib
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import valid_patterns
+from _torch_cases import pod_route_case, valid_patterns
 from repro_torch import kernels as tk
 from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
 from repro_torch.core.simulator import BP_POD_DEFAULT, SlotDraws
 from repro_torch.kernels import (pod_route_ref, queue_update_ref,
                                  route_commit_ref, weighted_argmin_ref)
+from repro_torch.kernels.pod_route import launch as pod_route_launch
 from repro_torch.kernels.queue_update import launch as queue_update_launch
 from repro_torch.kernels.route_commit import launch
 from repro_torch.kernels.weighted_argmin import launch as weighted_argmin_launch
@@ -461,6 +463,212 @@ def test_cuda_queue_update_waits_for_the_kernel_in_front(dev):
         torch.cuda.synchronize()
         want = queue_update_ref(Q + k, new_sel, sel_cls, valid, inv)
         assert torch.equal(Q_new.cpu(), want[0]) and torch.equal(W_new.cpu(), want[1])
+
+
+def _pod_inputs(W, ci, cc, cv, inv):
+    """The battery's (W, cand_idx, cand_cls, valid) as tensors, with W in
+    float32 and bfloat16 and the [M, 3] and [3] rates (dead column 1)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    for w in (t(W), t(W).to(torch.bfloat16)):
+        for rates in (t(inv), t(np.array([10.0, np.inf, 50.0], np.float32))):
+            yield w, t(ci), t(cc), t(cv), rates
+
+
+@pytest.mark.parametrize("M", [97, 16000])
+@pytest.mark.parametrize("B", [1, 3, 256, 300])
+@pytest.mark.parametrize("C", [1, 11, 32, 33, 40])
+def test_cuda_pod_route_battery(dev, C, B, M):
+    """Bit-equal to the plain version for C from 1 to 40 (one slot a lane,
+    two, and rows longer than a warp), B from 1 to 300: float32 and
+    bfloat16 W, [M, 3] and [3] rates with dead entries and a dead column,
+    equal minima at two different servers on both sides of every split of
+    a row, duplicate candidates, a row with no valid slot, a row of class 3
+    only, and the candidates -1 and M."""
+    for args in _pod_inputs(*pod_route_case(C * 1000 + B, M, B, C)):
+        want = pod_route_ref(*args)
+        got = tk.pod_route(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert torch.equal(a, b.cpu()), (args[0].dtype, tuple(args[4].shape), i)
+
+
+@pytest.mark.parametrize("M,B,C", [(500, 256, 11), (97, 3, 11), (5000, 300, 40),
+                                   (64, 1, 40)])
+@pytest.mark.parametrize("at_end", [True, False], ids=["fence_after", "fence_before"])
+def test_cuda_pod_route_stays_inside_its_buffers(dev, M, B, C, at_end):
+    """W, cand_idx, cand_cls, valid, the rates and the outputs each lie
+    flush against a page that is never mapped, so a load one byte past
+    either end of a buffer faults; then the outputs equal the plain
+    version.  Rows of 11 and 40 slots are not 16-byte aligned; the
+    candidates -1 and M must not be loaded, nor a slot or row past the
+    last."""
+    for w, ci, cc, cv, rates in _pod_inputs(*pod_route_case(M + C, M, B, C)):
+        want = pod_route_ref(w, ci, cc, cv, rates)
+        ins = [w.view(torch.int16) if w.dtype == torch.bfloat16 else w, ci, cc, cv,
+               rates]
+        outs = [torch.full((B,), 7, dtype=torch.int32), torch.full((B,), 7.0)]
+        with _fenced([a.to(dev) for a in ins + outs], at_end) as f:
+            fw = f[0].view(torch.bfloat16) if w.dtype == torch.bfloat16 else f[0]
+            pod_route_launch(fw, *f[1:5], f[5], f[6])
+            torch.cuda.synchronize()
+            got = [f[5].cpu(), f[6].cpu()]
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert torch.equal(a, b), (w.dtype, tuple(rates.shape), i)
+
+
+def test_cuda_pod_route_waits_for_the_kernel_in_front(dev):
+    """pod_route may start before the kernel in front of it has finished
+    (programmatic stream serialization) and must read nothing before that
+    kernel's writes land.  20 rounds each: fresh candidate lists written
+    by a PyTorch kernel over stale ones (cand_idx, cand_cls and valid in
+    turn; a kernel, not a copy_ that runs as a memcpy) and an in-place
+    PyTorch write to W, the one or the other right before the launch; then
+    queue_update at M=16000 launched straight into a pod_route that reads
+    its W_new, which held stale workloads."""
+    M, B, C = 16000, 256, 11
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    W, ci, cc, cv, inv = (t(a) for a in pod_route_case(5, M, B, C, outside=False))
+    rng = np.random.default_rng(6)
+    stale = dict(ci=torch.zeros_like(ci), cc=torch.full_like(cc, 3),
+                 cv=torch.zeros_like(cv))
+    d = {k: v.to(dev) for k, v in dict(W=W, ci=ci, cc=cc, cv=cv, inv=inv).items()}
+    sel = torch.empty(B, dtype=torch.int32, device=dev)
+    val = torch.empty(B, device=dev)
+    for k in range(20):
+        delta = t(rng.uniform(0, 50, M).astype(np.float32))
+        fresh = dict(ci=t(rng.integers(0, M, (B, C)).astype(np.int32)),
+                     cc=t(rng.integers(0, 3, (B, C)).astype(np.int32)),
+                     cv=t(rng.random((B, C)) < 0.9))
+        name = ("ci", "cc", "cv")[k % 3]
+        lists = {**fresh, name: stale[name]}
+        W = W + delta
+        want = pod_route_ref(W, fresh["ci"], fresh["cc"], fresh["cv"], inv)
+        old = pod_route_ref(W, lists["ci"], lists["cc"], lists["cv"], inv)
+        assert not torch.equal(want[0], old[0]), k
+        for n, a in lists.items():
+            d[n].copy_(a.to(dev))
+        dd, fd = delta.to(dev), fresh[name].to(dev)
+        torch.cuda.synchronize()
+        write = ((lambda: torch.logical_or(fd, fd, out=d["cv"])) if name == "cv"
+                 else (lambda: torch.add(fd, 0, out=d[name])))
+        if k % 2:
+            d["W"].add_(dd)
+            write()
+        else:
+            write()
+            d["W"].add_(dd)
+        pod_route_launch(d["W"], d["ci"], d["cc"], d["cv"], d["inv"], sel, val)
+        torch.cuda.synchronize()
+        assert torch.equal(sel.cpu(), want[0]) and torch.equal(val.cpu(), want[1]), k
+    Q, qsel, qcls, qvalid, _ = _commit_case(7, M, B)
+    Qd = Q.to(dev, copy=True)
+    q_args = [a.to(dev) for a in (qsel, qcls, qvalid)]
+    Q_new = torch.empty_like(Qd)
+    W_new = torch.empty(M, device=dev)
+    stale_w = torch.full((M,), 1e6)
+    stale_w[:4] = 0.0                  # the planted servers
+    for n, a in dict(ci=ci, cc=cc, cv=cv).items():
+        d[n].copy_(a.to(dev))
+    stale_w_d = stale_w.to(dev)
+    for k in range(1, 21):
+        W_k = queue_update_ref(Q + k, qsel, qcls, qvalid, inv)[1]
+        want = pod_route_ref(W_k, ci, cc, cv, inv)
+        assert not torch.equal(want[0], pod_route_ref(stale_w, ci, cc, cv, inv)[0])
+        W_new.copy_(stale_w_d)
+        Qd.add_(1)
+        queue_update_launch(Qd, *q_args, d["inv"], Q_new, W_new)
+        pod_route_launch(W_new, d["ci"], d["cc"], d["cv"], d["inv"], sel, val)
+        torch.cuda.synchronize()
+        assert torch.equal(sel.cpu(), want[0]) and torch.equal(val.cpu(), want[1]), k
+
+
+
+def _late_writer():
+    """write(src, dst): copies src's bytes over dst's in a kernel that lets
+    the kernel after it start at once and writes only after ~50 us
+    (tests/late_writer.cu)."""
+    from repro_torch.kernels import build
+    lib = ctypes.CDLL(str(build.build(
+        "late_writer", source=Path(__file__).resolve().with_name("late_writer.cu"))))
+    fn = lib.late_write
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def write(src, dst):
+        assert src.nbytes == dst.nbytes and src.is_contiguous() and dst.is_contiguous()
+        err = fn(src.data_ptr(), dst.data_ptr(), dst.nbytes, 100_000,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert err == 0, f"late_write: CUDA error {err}"
+    return write
+
+
+def _snapshot_launch_case(kernel: str, bf16: bool, per_server: bool):
+    """(fresh inputs, stale value of each input, plain version, launch,
+    output buffers) of one snapshot kernel at the routing tick's shapes,
+    with W in bfloat16 or float32 and [M, 3] or [3] rates."""
+    M, B, C = 16000, 256, 11
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    rates = lambda inv: inv if per_server else torch.tensor([10.0, np.inf, 50.0])
+    w = lambda W: W.to(torch.bfloat16) if bf16 else W
+    if kernel == "pod_route":
+        W, ci, cc, cv, inv = (t(a) for a in pod_route_case(5, M, B, C, outside=False))
+        x = dict(W=w(W), cand_idx=ci, cand_cls=cc, valid=cv, inv=rates(inv))
+        stale = dict(W=x["W"].flip(0), cand_idx=torch.zeros_like(ci),
+                     cand_cls=torch.full_like(cc, 3), valid=torch.zeros_like(cv),
+                     inv=x["inv"].flip(0))
+        return x, stale, pod_route_ref, pod_route_launch, (
+            torch.empty(B, dtype=torch.int32), torch.empty(B))
+    if kernel == "weighted_argmin":
+        W, cls, inv = (t(a) for a in _argmin_case(3, M, B))
+        x = dict(W=w(W), cls=cls, inv=rates(inv))
+        stale = dict(W=x["W"].flip(0), cls=torch.full_like(cls, 3), inv=x["inv"].flip(0))
+        return x, stale, weighted_argmin_ref, weighted_argmin_launch, (
+            torch.empty(B, dtype=torch.int32), torch.empty(B))
+    Q, sel, sel_cls, valid, inv = _commit_case(5, M, B)
+    x = dict(Q=Q, sel=sel, sel_cls=sel_cls, valid=valid, inv=rates(inv))
+    stale = dict(Q=Q + 5, sel=torch.full_like(sel, M - 1),
+                 sel_cls=torch.full_like(sel_cls, 3), valid=torch.zeros_like(valid),
+                 inv=x["inv"].flip(0))
+    return x, stale, queue_update_ref, queue_update_launch, (
+        torch.empty_like(Q), torch.empty(M))
+
+
+_OPERANDS = {"pod_route": ("W", "cand_idx", "cand_cls", "valid", "inv"),
+             "weighted_argmin": ("W", "cls", "inv"),
+             "queue_update": ("Q", "sel", "sel_cls", "valid", "inv")}
+
+
+@pytest.mark.parametrize("kernel,operand,bf16,per_server", [
+    (k, o, bf16, per_server) for k, ops in _OPERANDS.items() for o in ops
+    for bf16 in ((False, True) if k != "queue_update" else (False,))
+    for per_server in (True, False)])
+def test_cuda_snapshot_kernel_waits_for_an_early_trigger(dev, kernel, operand, bf16,
+                                                         per_server):
+    """A kernel in front that lets its dependents start at once and writes
+    an input ~50 us later: a snapshot kernel (a programmatic dependent
+    launch) that read that input before its griddepcontrol.wait would see
+    the stale value.  PyTorch's kernels never let a dependent start early,
+    so the tests behind them above cannot catch such a read; this one
+    does, for each input of each compiled variant (float32 or bfloat16 W,
+    [M, 3] or [3] rates), a load the compiler moved above the wait
+    included.  Five rounds each."""
+    write = _late_writer()
+    x, stale, ref, launch_fn, outs = _snapshot_launch_case(kernel, bf16, per_server)
+    want = ref(*x.values())
+    old = ref(*{**x, operand: stale[operand]}.values())
+    assert not all(torch.equal(a, b) for a, b in zip(want, old))
+    d = {k: v.to(dev) for k, v in x.items()}
+    fresh, stale_d = d[operand].clone(), stale[operand].to(dev)
+    outs = [o.to(dev) for o in outs]
+    for k in range(5):
+        d[operand].copy_(stale_d)
+        torch.cuda.synchronize()
+        write(fresh, d[operand])
+        launch_fn(*d.values(), *outs)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(want, outs)):
+            assert torch.equal(a, b.cpu()), (k, i)
 
 
 @pytest.mark.parametrize("route", ["weighted_argmin", "pod_route"])

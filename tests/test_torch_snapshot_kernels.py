@@ -22,6 +22,7 @@ from repro.kernels import pod_route as j_pod_route
 from repro.kernels import queue_update as j_queue_update
 from repro.kernels import ref as jref
 from repro.kernels import weighted_argmin as j_weighted_argmin
+from _torch_cases import pod_route_case
 from repro_torch import kernels as tk
 
 SHAPES = [(64, 3, 5), (128, 8, 8), (500, 37, 11), (1000, 130, 19), (129, 9, 16)]
@@ -163,6 +164,20 @@ def test_pod_route_matches_jax_on_hetero_battery(seed):
     cv = rng.random((B, C)) < 0.85
     cv[:, 0] = True
     _assert_route_equal(*_pod_both(W, ci, cc, cv, inv_m))
+
+
+@pytest.mark.parametrize("C", [1, 11, 32, 33, 40])
+def test_pod_route_matches_jax_on_the_card_battery(C):
+    """The inputs the card's battery holds the CUDA kernel to
+    (tests/_torch_cases.py: equal minima at different servers across every
+    split of a row, duplicate candidates, a row with no valid slot, a row of
+    class 3 only, dead rates), float32 and bfloat16 W, [M, 3] and [3]
+    rates.  Candidates stay inside 0..M-1: the JAX kernel's one-hot gather
+    has no rule for others."""
+    W, ci, cc, cv, inv = pod_route_case(C, 97, 17, C, outside=False)
+    for bf16 in (False, True):
+        for rates in (inv, np.array([10.0, np.inf, 50.0], np.float32)):
+            _assert_route_equal(*_pod_both(W, ci, cc, cv, rates, bf16))
 
 
 # ---------------------------------------------------------------------------
