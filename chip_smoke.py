@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py            # the full check (one card)
     python3 chip_smoke.py --quick    # a short first run: build, kernels, T/20
-    python3 chip_smoke.py --profile  # only timings: the slot profile,
+    python3 chip_smoke.py --profile  # only timings: the slot profile
+                                     # (BP, BP-Pod, JSQ-MaxWeight-Pod),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -26,11 +27,15 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      PyTorch kernel, as on the routing tick, beside the launch floor: a
      kernel that only waits and stores, timed the same way, launched
      plainly and as a dependent launch.
+     route_commit's pod variant also at batched JSQ routing's operand
+     (C=3 replica triples, class 0, all valid, unit rates, slot-order ties).
   3. the simulator on the card: the port's own CPU path and its CUDA path,
-     fed the same draws, must give bit-identical sums at a small size; then
-     Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000.  The
-     launch counters are zeroed just before each run and read just after:
-     route_commit must launch once per slot.
+     fed the same draws, must give bit-identical sums at a small size, for
+     every family (and JSQ-MaxWeight-Pod with s_max < M); then
+     Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000,
+     JSQ-MaxWeight-Pod likewise, JSQ-MaxWeight, JSQ-Priority and FCFS at
+     M=500.  The launch counters are zeroed just before each run and read
+     just after: route_commit must launch once per slot (FCFS: never).
   4. complexity (paper §IV-C), on the port's public functions: probes per
      decision; microseconds per routing decision of weighted_argmin (O(M))
      and pod_route (O(d)) as M grows; the device time of the tick's
@@ -78,6 +83,7 @@ NO_LIBRARY = {
                  "and takes a first-slot argmin",
     "queue_update": "no single PyTorch call scatters the commits and sums "
                     "the weighted rows"}
+JSQ_SHAPES = ((500, 16, 2.5), (500, 22, 4.5), (5000, 90, 45.0))  # M, a_max, lambda
 SNAPSHOT_SHAPES = [(500, 256, 11), (5000, 256, 11), (8192, 256, 11),
                    (16000, 256, 11)]
 
@@ -281,7 +287,6 @@ def check_kernels(dev, quick: bool) -> dict:
     (comparable with the earlier slices) and round(lambda), the
     simulator's mean arrival count."""
     from repro_torch.kernels import route_commit, route_commit_ref
-    from repro_torch.kernels.route_commit import launch
 
     err = {}
 
@@ -305,8 +310,8 @@ def check_kernels(dev, quick: bool) -> dict:
             for rates in ("homo", "hetero"):
                 for seed in range(3):
                     x = kernel_inputs(M, B, C, rates, seed, dev)
-                    got = check_equal(x, variant_args(x, variant), variant,
-                                      f"M={M} B={B} rates={rates} seed={seed}")
+                    check_equal(x, variant_args(x, variant), variant,
+                                f"M={M} B={B} rates={rates} seed={seed}")
                 log(f"  route_commit_{variant:4s} M={M:5d} B={B:3d} "
                     f"rates={rates}: equal to the plain version on seeds 0-2 "
                     f"(classes 0..2, valid 3B/4)")
@@ -326,34 +331,98 @@ def check_kernels(dev, quick: bool) -> dict:
                     f"{' (prio given and absent)' if variant == 'full' else ''}")
             if M > 5000:
                 continue
-            # time at the main path's operand (homogeneous [3] rates): the
-            # kernel alone into preallocated outputs (device time), then the
-            # whole wrapper as the host issues it
-            iters = 200 if quick else 500
+            # time at the main path's operand (homogeneous [3] rates)
             for n_valid in (max(1, (3 * B) // 4), int(lam + 0.5)):
                 x = kernel_inputs(M, B, C, "homo", 0, dev, np.arange(B) < n_valid)
-                kw = variant_args(x, variant)
-                outs = tuple(torch.empty_like(o) for o in got)
-                k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
-                                                     outs, **kw), iters)
-                w_ms = cuda_time_ms(lambda: route_commit(x["Q"], x["valid"],
-                                                         x["inv"], **kw), iters)
-                p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"],
-                                                             x["inv"], **kw),
-                                    5 if quick else 20, warmup=2)
-                b_ms, b_by = bound(x, variant)
-                log(f"  route_commit_{variant} M={M} B={B}"
-                    f"{'' if variant == 'full' else f' C={C}'} valid={n_valid}: "
-                    f"kernel {k_ms:.6f} ms ({k_ms * 1e3 / n_valid:.4f} us a "
-                    f"sequential step)  wrapper {w_ms:.6f} ms"
-                    f"  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms ({b_by})"
-                    f"  library n/a ({NO_LIBRARY['route_commit']})")
-                rows[(variant, M, n_valid == int(lam + 0.5))] = dict(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, B=B,
-                    n_valid=n_valid, us_per_step=k_ms * 1e3 / n_valid)
+                rows[(variant, M, n_valid == int(lam + 0.5))] = time_route_commit(
+                    x, variant, quick, f"route_commit_{variant} M={M} B={B}"
+                    f"{'' if variant == 'full' else f' C={C}'} valid={n_valid}")
     for key, r in rows.items():
         r["max_abs_err"] = err[key[0]]
     return rows
+
+
+def time_route_commit(x: dict, variant: str, quick: bool, label: str) -> dict:
+    """route_commit on ``x``: the kernel alone into preallocated outputs
+    (device time), the whole wrapper as the host issues it, and the plain
+    version, beside the bound."""
+    from repro_torch.kernels import route_commit, route_commit_ref
+    from repro_torch.kernels.route_commit import launch
+
+    iters = 200 if quick else 500
+    kw = variant_args(x, variant)
+    B, n_valid = x["valid"].shape[0], int(x["valid"].sum())
+    outs = tuple(torch.empty_like(o)
+                 for o in route_commit(x["Q"], x["valid"], x["inv"], **kw))
+    k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"], outs, **kw),
+                          iters)
+    w_ms = cuda_time_ms(lambda: route_commit(x["Q"], x["valid"], x["inv"], **kw),
+                        iters)
+    p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"], x["inv"], **kw),
+                        5 if quick else 20, warmup=2)
+    b_ms, b_by = bound(x, variant)
+    log(f"  {label}: kernel {k_ms:.6f} ms ({k_ms * 1e3 / n_valid:.4f} us a "
+        f"sequential step)  wrapper {w_ms:.6f} ms  plain {p_ms:.6f} ms  "
+        f"bound {b_ms:.8f} ms ({b_by})  library n/a ({NO_LIBRARY['route_commit']})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, B=B,
+                n_valid=n_valid, us_per_step=k_ms * 1e3 / n_valid)
+
+
+def jsq_inputs(M: int, B: int, seed: int, dev, valid) -> dict:
+    """Batched JSQ routing's route_commit operand (the simulator's
+    ``_sq_step``): Q nonzero in column 0 only, with three lengths, so that
+    equal queues tie across a triple's slots (every third triple is three
+    servers of one length); distinct replica triples as the C=3
+    candidates, all of class 0 and valid; unit rates.  The tests draw the
+    same operand from tests/_torch_cases.py; this script keeps its own
+    copy so that it imports nothing from tests/."""
+    rng = np.random.default_rng(seed)
+    Q = np.zeros((M, 3), np.int32)
+    Q[:, 0] = rng.integers(0, 3, M)
+    ci = np.stack([rng.choice(M, 3, replace=False) for _ in range(B)])
+    for b in range(0, B, 3):
+        same = np.flatnonzero(Q[:, 0] == Q[ci[b, 0], 0])
+        if len(same) >= 3:
+            ci[b] = rng.choice(same, 3, replace=False)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(Q=t(Q), valid=t(valid), inv=t(np.ones(3, np.float32)),
+                cand_idx=t(ci.astype(np.int32)),
+                cand_cls=t(np.zeros((B, 3), np.int32)),
+                cand_valid=t(np.ones((B, 3), bool)))
+
+
+def check_jsq_operand(dev, quick: bool):
+    """route_commit_pod at batched JSQ routing's operand, B = a_max of
+    M=500 at loads 0.5 / 0.9 and of M=5000 at 0.9: equal to the plain
+    version on every valid pattern, then timed as ``check_kernels`` times
+    the other shapes.  Returns ({(M, B, n_valid is round(lambda)): row},
+    largest float difference)."""
+    from repro_torch.kernels import route_commit, route_commit_ref
+
+    err, rows = 0.0, {}
+    for M, B, lam in JSQ_SHAPES:
+        patterns = valid_patterns(B, lam, M + B)
+        for pattern, valid in patterns.items():
+            x = jsq_inputs(M, B, M + B, dev, valid)
+            kw = variant_args(x, "pod")
+            got = route_commit(x["Q"], x["valid"], x["inv"], **kw)
+            torch.cuda.synchronize()
+            want = route_commit_ref(x["Q"], x["valid"], x["inv"], **kw)
+            for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), got, want):
+                if not torch.equal(a, b):
+                    fail(f"route_commit_pod JSQ operand M={M} B={B} "
+                         f"valid={pattern}: {name} differs from the plain version")
+                if a.is_floating_point() and a.numel():
+                    err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+        log(f"  route_commit_pod M={M:5d} B={B:3d} JSQ operand (C=3, class 0, "
+            f"unit rates, slot-order ties): equal to the plain version on "
+            f"valid patterns {', '.join(patterns)}")
+        for n_valid in (max(1, (3 * B) // 4), int(lam + 0.5)):
+            x = jsq_inputs(M, B, 0, dev, np.arange(B) < n_valid)
+            rows[(M, B, n_valid == int(lam + 0.5))] = time_route_commit(
+                x, "pod", quick, f"route_commit_pod JSQ M={M} B={B} C=3 "
+                                 f"valid={n_valid}")
+    return rows, err
 
 
 def snapshot_inputs(M: int, B: int, C: int, hetero: bool, seed: int, dev):
@@ -502,82 +571,97 @@ def time_snapshot_kernels(dev, quick: bool, floor) -> dict:
 
 def check_small_run_matches_cpu(dev):
     """At a small size, the CUDA path and the port's CPU path, fed the
-    same draws (made on the CPU), must give the same sums bit for bit."""
+    same draws (made on the CPU), must give the same sums bit for bit:
+    every family, and JSQ-MaxWeight-Pod also with s_max < M (S < M
+    scheduling rows)."""
     from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
-    from repro_torch.core.simulator import SlotDraws, _pod_for
+    from repro_torch.core.simulator import _family, _pod_for
 
     cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
-    cfg = SimConfig(T=600, warmup=150, route_mode="batched")
-    for algo in ("balanced_pandas", "balanced_pandas_pod"):
+    cases = [(a, 64) for a in ("balanced_pandas", "balanced_pandas_pod",
+                               "jsq_maxweight_pod", "jsq_maxweight",
+                               "jsq_priority", "fcfs")]
+    cases.append(("jsq_maxweight_pod", 8))
+    for algo, s_max in cases:
+        cfg = SimConfig(T=600, warmup=150, s_max=s_max, route_mode="batched")
         pod = _pod_for(algo, None)
         a_max = cfg.resolve_a_max(0.9 * rates.alpha * cl.M)
         results = []
         lam_t = torch.full((cfg.T,), 0.9 * rates.alpha * cl.M)
         for run_dev in ("cpu", dev):
             src = TorchDraws(torch.Generator().manual_seed(5), cl, rates, cfg,
-                             pod, a_max, lam_t)
+                             pod, a_max, lam_t, _family(algo))
 
             def draw(t, src=src, run_dev=run_dev):
-                return SlotDraws(*(None if v is None else v.to(run_dev)
-                                   for v in src(t)))
+                d = src(t)
+                return type(d)(*(None if v is None else v.to(run_dev) for v in d))
             results.append(simulate(algo, cl, rates, 0.9, 0, cfg, a_max=a_max,
                                     device=run_dev, draws=draw))
         for name, a, b in zip(results[0]._fields, *results):
             if not torch.equal(a.cpu(), b.cpu()) and not (
                     a.isnan().all() and b.cpu().isnan().all()):
-                fail(f"{algo}: {name} differs between CPU and CUDA paths "
-                     f"({a} vs {b})")
-        log(f"  {algo}: CUDA path equals the CPU path on a small run "
-            f"(M=20, T=600, shared draws)")
+                fail(f"{algo} s_max={s_max}: {name} differs between CPU and "
+                     f"CUDA paths ({a} vs {b})")
+        log(f"  {algo} s_max={s_max}: CUDA path equals the CPU path on a small "
+            f"run (M=20, T=600, shared draws)")
 
 
 def run_simulations(dev, quick: bool) -> dict:
+    """The runs at full width, each with the launch counters zeroed just
+    before it and read just after: (algo, cluster, load, T, warmup)."""
     from repro_torch.core import Cluster, Rates, SimConfig, simulate
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
 
-    paper = (Cluster(M=500, K=10), Rates(0.01, 0.005, 0.002))
-    big = (Cluster(M=5000, K=50), Rates(0.01, 0.005, 0.002))
+    rates = Rates(0.01, 0.005, 0.002)
+    paper, big = Cluster(M=500, K=10), Cluster(M=5000, K=50)
     scale = 20 if quick else 1
-    runs = [(paper, load, 40_000 // scale, 10_000 // scale)
-            for load in (0.5, 0.9)]
-    runs.append((big, 0.9, 10_000 // scale, 2_500 // scale))
+    runs = []
+    for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
+        runs += [(algo, paper, load, 40_000, 10_000) for load in (0.5, 0.9)]
+        runs.append((algo, big, 0.9, 10_000, 2_500))
+    # cut from T=10 000 to keep the whole smoke under ~450 s (PERF.md §4)
+    runs += [(algo, paper, 0.5, 5_000, 1_250)
+             for algo in ("jsq_maxweight", "jsq_priority")]
+    runs.append(("fcfs", paper, 0.15, 5_000, 1_250))
+    kernel = {"balanced_pandas": "route_commit_full", "fcfs": None}
     launches = {"route_commit_full": 0, "route_commit_pod": 0}
-    for (cl, rates), load, T, warmup in runs:
+    for algo, cl, load, T, warmup in runs:
+        T, warmup = T // scale, warmup // scale
         cfg = SimConfig(T=T, warmup=warmup, route_mode="batched")
-        for algo in ("balanced_pandas", "balanced_pandas_pod"):
-            name = ("route_commit_full" if algo == "balanced_pandas"
-                    else "route_commit_pod")
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            r = simulate(algo, cl, rates, load, 1, cfg, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(LAUNCHES)
+        name = kernel.get(algo, "route_commit_pod")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = simulate(algo, cl, rates, load, 1, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        if name is not None:
             launches[name] += counts[name]
-            f = lambda x: float(x)
-            v = lambda x: [round(float(y), 6) for y in x]
-            lam = load * cl.M * rates.alpha
-            thr = f(r.throughput) / f(r.arrival_rate_hat)
-            log(f"  {algo:20s} M={cl.M} load={load} T={T}: "
-                f"mean_completion_slots={f(r.mean_completion_slots):.4f} "
-                f"throughput/arrivals={thr:.5f} locality={v(r.locality_fractions)} "
-                f"routed={v(r.routed_fractions)} drift={f(r.drift):.4f} "
-                f"clip={f(r.clip_fraction):.6f} "
-                f"route_candidates={f(r.route_candidates_per_decision):.0f} "
-                f"wall={wall:.2f}s slots/s={T / wall:.1f} "
-                f"routed_tasks/s={lam * T / wall:.1f} launches={counts}")
-            if counts[name] != T:
-                fail(f"{algo}: {name} launched {counts[name]} times in {T} slots")
-            other = sum(c for k, c in counts.items() if k != name)
-            if other:
-                fail(f"{algo}: unexpected launches {counts}")
-            if not np.isfinite(f(r.mean_completion_slots)):
-                fail(f"{algo}: mean completion is not finite")
-            if f(r.clip_fraction) != 0.0:
-                fail(f"{algo}: arrivals were clipped ({f(r.clip_fraction)})")
-            if load == 0.5 and abs(thr - 1.0) > 0.05:
-                fail(f"{algo}: throughput {thr:.4f} of arrivals at load 0.5")
+        f = lambda x: float(x)
+        v = lambda x: [round(float(y), 6) for y in x]
+        lam = load * cl.M * rates.alpha
+        thr = f(r.throughput) / f(r.arrival_rate_hat)
+        log(f"  {algo:20s} M={cl.M} load={load} T={T}: "
+            f"mean_completion_slots={f(r.mean_completion_slots):.4f} "
+            f"throughput/arrivals={thr:.5f} locality={v(r.locality_fractions)} "
+            f"routed={v(r.routed_fractions)} drift={f(r.drift):.4f} "
+            f"clip={f(r.clip_fraction):.6f} "
+            f"route_candidates={f(r.route_candidates_per_decision):.0f} "
+            f"sched_candidates={f(r.sched_candidates_per_decision):.0f} "
+            f"wall={wall:.2f}s slots/s={T / wall:.1f} "
+            f"routed_tasks/s={lam * T / wall:.1f} launches={counts}")
+        if name is not None and counts[name] != T:
+            fail(f"{algo}: {name} launched {counts[name]} times in {T} slots")
+        other = sum(c for k, c in counts.items() if k != name)
+        if other:
+            fail(f"{algo}: unexpected launches {counts}")
+        if not np.isfinite(f(r.mean_completion_slots)):
+            fail(f"{algo}: mean completion is not finite")
+        if f(r.clip_fraction) != 0.0:
+            fail(f"{algo}: arrivals were clipped ({f(r.clip_fraction)})")
+        if load <= 0.5 and abs(thr - 1.0) > 0.05:
+            fail(f"{algo}: throughput {thr:.4f} of arrivals at load {load}")
     return launches
 
 
@@ -745,7 +829,7 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
 
 def profile_slots(dev, slots: int = 400) -> None:
     """Where a slot's time goes on the card: torch.profiler over ``slots``
-    slots of each algorithm at load 0.9, M=500 and M=5000 (a
+    slots of BP, BP-Pod and JSQ-MaxWeight-Pod at load 0.9, M=500 and M=5000 (a
     CUDA-graph-free, eager loop).  Prints wall per slot, device busy time
     per slot, the device's idle share, kernel launches per slot,
     route_commit's device time per slot and the top kernels."""
@@ -756,7 +840,7 @@ def profile_slots(dev, slots: int = 400) -> None:
     rates = Rates(0.01, 0.005, 0.002)
     cfg = SimConfig(T=slots, warmup=0, route_mode="batched")
     for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50)):
-        for algo in ("balanced_pandas", "balanced_pandas_pod"):
+        for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
             simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)      # warm
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -854,6 +938,7 @@ def main() -> int:
 
     log("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
+    jsq_rows, jsq_err = check_jsq_operand(dev, args.quick)
     err = check_snapshot_kernels(dev)
     snap = time_snapshot_kernels(dev, args.quick, floor)
     log("[3] simulator")
@@ -870,21 +955,26 @@ def main() -> int:
     launches.update(routing_ticks(dev))
 
     kernels = []
+    keep = ("ms", "plain_ms", "bound_ms", "us_per_step")
     for variant in ("full", "pod"):
         name = f"route_commit_{variant}"
         r = rows[(variant, 500, False)]
+        by_shape = {f"M={M} valid={rows[(variant, M, lp)]['n_valid']}": {
+            k: rows[(variant, M, lp)][k] for k in keep}
+            for M in (500, 5000) for lp in (False, True)}
+        if variant == "pod":
+            by_shape.update({f"JSQ M={M} B={B} C=3 valid={j['n_valid']}":
+                             {k: j[k] for k in keep}
+                             for (M, B, _), j in jsq_rows.items()})
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=r["max_abs_err"],
+            max_abs_err=max(r["max_abs_err"], jsq_err if variant == "pod" else 0.0),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             shape=f"M=500 B={r['B']} valid={r['n_valid']}"
                   + ("" if variant == "full" else " C=11"),
-            by_shape={f"M={M} valid={rows[(variant, M, lp)]['n_valid']}": {
-                k: rows[(variant, M, lp)][k]
-                for k in ("ms", "plain_ms", "bound_ms", "us_per_step")}
-                for M in (500, 5000) for lp in (False, True)}))
+            by_shape=by_shape))
     for name in ("weighted_argmin", "pod_route", "queue_update"):
         r = snap[(name, 500)]
         kernels.append(dict(

@@ -52,6 +52,12 @@ class Cluster:
         """Servers per rack (M / K; checked divisible)."""
         return self.M // self.K
 
+    @property
+    def rack_of(self) -> torch.Tensor:
+        """[M] int32 rack index of each server, on the CPU (servers are
+        contiguous by rack)."""
+        return torch.arange(self.M, dtype=torch.int32) // self.rack_size
+
 
 def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
@@ -63,6 +69,14 @@ def uniform_open(gen: torch.Generator, shape, device) -> torch.Tensor:
     return _uniform(gen, shape, device) * (1.0 - 2e-7) + 1e-7
 
 
+def uniform_int(gen: torch.Generator, shape, high, device) -> torch.Tensor:
+    """int32 uniform on [0, high) by scaling a uniform: ``high`` is an int
+    or a tensor broadcast against ``shape`` (per-column bounds), each below
+    2**24.  torch.rand is a multiple of 2**-24 below 1, so u * high
+    truncates below high."""
+    return (_uniform(gen, shape, device) * high).to(torch.int32)
+
+
 def sample_locals(gen: torch.Generator, cluster: Cluster, batch: int,
                   device="cpu") -> torch.Tensor:
     """``batch`` tasks' local-server triples, distinct within a task.
@@ -70,12 +84,11 @@ def sample_locals(gen: torch.Generator, cluster: Cluster, batch: int,
     Returns int32 [batch, n_replicas].  Sequential-skip sampling, as in the
     JAX reference: the i-th replica is drawn uniformly from the M-i servers
     not yet chosen and mapped back by skipping the earlier picks in
-    ascending order.  (torch.rand is a multiple of 2**-24 below 1, so
-    u * (M - i) truncates to at most M - i - 1.)"""
+    ascending order."""
     n = cluster.n_replicas
     high = torch.arange(cluster.M, cluster.M - n, -1, dtype=torch.float32,
                         device=device)
-    draws = (_uniform(gen, (batch, n), device) * high).to(torch.int32)
+    draws = uniform_int(gen, (batch, n), high, device)
     picks = [draws[:, 0]]
     for i in range(1, n):
         d = draws[:, i]

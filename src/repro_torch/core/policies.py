@@ -1,9 +1,12 @@
 """Routing policies from the paper (§IV) as PyTorch functions.
 
-Mirror of ``repro.core.policies`` for the Balanced-Pandas family: exact
-lexicographic arg-min/max with masking, power-of-d candidate sampling, the
-O(M) and O(d) routing rules, and the message-complexity counters.  Random
-draws come from an explicit ``torch.Generator``.
+Mirror of ``repro.core.policies``: exact lexicographic arg-min/max with
+masking, power-of-d candidate sampling, the O(M) and O(d) Balanced-Pandas
+routing rules, join-the-shortest-local-queue routing, the in-rack and
+out-of-rack peer draws of JSQ-MaxWeight-Pod scheduling, and the
+message-complexity counters.  Random draws come from an explicit
+``torch.Generator``; where the reference takes a key to draw tie-break
+uniforms, the port takes the uniforms themselves.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .cluster import LOCAL, RACK, REMOTE, Cluster
+from .cluster import LOCAL, RACK, REMOTE, Cluster, uniform_int
 
 _INF = float("inf")
 
@@ -47,10 +50,8 @@ def masked_draws(gen: torch.Generator, set_mask: torch.Tensor,
     number of prefix counts <= u."""
     csum = torch.cumsum(set_mask.to(torch.int32), dim=-1, dtype=torch.int32)
     total = csum[..., -1:]
-    high = torch.clamp_min(total, 1)
-    # torch.rand is a multiple of 2**-24 below 1: u * high truncates below high
-    u = (torch.rand(set_mask.shape[:-1] + (k,), generator=gen,
-                    device=set_mask.device) * high).to(torch.int32)
+    u = uniform_int(gen, set_mask.shape[:-1] + (k,), torch.clamp_min(total, 1),
+                    set_mask.device)
     idx = (csum[..., None, :] <= u[..., :, None]).sum(dim=-1, dtype=torch.int32)
     valid = (total > 0).expand(idx.shape)
     return torch.clamp_max(idx, set_mask.shape[-1] - 1), valid
@@ -76,7 +77,8 @@ def inv_rate_for(inv_rates: torch.Tensor, idx: torch.Tensor,
 class PodSpec:
     """Power-of-d sampling spec: rack-local / remote servers probed in
     addition to the task's local servers.  The paper's §V uses d=8 as
-    (2 rack-local, 6 remote) for Balanced-Pandas-Pod."""
+    (2 rack-local, 6 remote) for Balanced-Pandas-Pod and d'=12 as (6, 6)
+    for JSQ-MaxWeight-Pod scheduling."""
 
     d_rack: int
     d_remote: int
@@ -151,6 +153,57 @@ def route_balanced_pandas_full(W: torch.Tensor, cls: torch.Tensor,
     sel = lex_argmin(ww, *keys, tie_rnd.expand(cls.shape), mask=mask)
     sel_cls = torch.gather(cls, -1, sel.to(torch.int64)[..., None])[..., 0]
     return sel, sel_cls.to(torch.int32)
+
+
+def route_jsq_local(rnd: torch.Tensor, Q: torch.Tensor,
+                    locals_: torch.Tensor) -> torch.Tensor:
+    """JSQ-MaxWeight(-Pod) / JSQ-Priority routing: join the shortest *local*
+    queue (paper §IV-B).  Q: [M]; locals_: int32 [..., R]; rnd: [..., R]
+    tie uniforms (lower wins).  Already O(1): only the n_replicas local
+    queues are examined.  Returns the chosen server, int32 [...]."""
+    qloc = Q[locals_.to(torch.int64)]
+    mask = torch.ones(locals_.shape, dtype=torch.bool, device=locals_.device)
+    pick = lex_argmin(qloc.to(torch.float32), rnd, mask=mask)
+    return torch.gather(locals_, -1, pick.to(torch.int64)[..., None])[..., 0]
+
+
+# ----------------------------------------------------------------------------
+# O(1) in-rack / out-of-rack draws (server ids are contiguous by rack, so both
+# sets are index intervals).  Used by JSQ-MW-Pod scheduling.
+# ----------------------------------------------------------------------------
+
+
+def rack_peer_of(cluster: Cluster, server: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The x-th server of ``server``'s rack other than itself; x in
+    [0, rack_size - 1), shape [..., k] against server [...]."""
+    start = (server // cluster.rack_size) * cluster.rack_size
+    return start[..., None] + x + (x >= (server - start)[..., None])
+
+
+def remote_peer_of(cluster: Cluster, server: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """The y-th server outside ``server``'s rack; y in [0, M - rack_size)."""
+    R = cluster.rack_size
+    start = (server // R) * R
+    return y + torch.where(y >= start[..., None], R, 0)
+
+
+def sample_rack_peer(gen: torch.Generator, cluster: Cluster,
+                     server: torch.Tensor, k: int) -> torch.Tensor:
+    """k uniform draws (with replacement) from ``server``'s rack, excluding
+    itself.  server: int [...]; returns [..., k]."""
+    x = uniform_int(gen, server.shape + (k,), max(cluster.rack_size - 1, 1),
+                    server.device)
+    return rack_peer_of(cluster, server, x)
+
+
+def sample_remote_peer(gen: torch.Generator, cluster: Cluster,
+                       server: torch.Tensor, k: int) -> torch.Tensor:
+    """k uniform draws (with replacement) from outside ``server``'s rack."""
+    y = uniform_int(gen, server.shape + (k,),
+                    max(cluster.M - cluster.rack_size, 1), server.device)
+    return remote_peer_of(cluster, server, y)
 
 
 def bp_candidates_per_route(cluster: Cluster, pod: Optional[PodSpec]) -> int:

@@ -1,19 +1,31 @@
-"""Discrete-time slotted simulator, Balanced-Pandas family (paper §III-IV).
+"""Discrete-time slotted simulator (paper §III-IV).
 
-PyTorch mirror of the BP family of ``repro.core.simulator``:
+PyTorch mirror of ``repro.core.simulator``.  Three queue-structure families
+cover the paper's six algorithms:
 
-  balanced_pandas            routing: argmin weighted workload over all M
-  balanced_pandas_pod        routing: argmin over the 3 locals + d samples
-  balanced_pandas_randomtie  balanced_pandas with random (not class-first)
-                             ties on the sequential path
-  scheduling (all): an idle server serves its own local queue, then
-  rack-local, then remote.
+  BP family      (3 sub-queues per server: local / rack-local / remote)
+      balanced_pandas            routing: argmin weighted workload over all M
+      balanced_pandas_pod        routing: argmin over the 3 locals + d samples
+      balanced_pandas_randomtie  balanced_pandas with random (not
+                                 class-first) ties on the sequential path
+      scheduling (all): an idle server serves its own local queue, then
+      rack-local, then remote.
+  SQ family      (one queue per server; queued tasks are local to it)
+      jsq_maxweight        routing: shortest local queue; scheduling: argmax
+                           over all M of {alpha*Q_own, beta*Q_rack,
+                           gamma*Q_other}
+      jsq_maxweight_pod    scheduling: argmax over own + d' sampled queues
+      jsq_priority         scheduling: own queue, else the longest in the
+                           rack, else the longest anywhere
+  FCFS           (one central queue; idle servers grab the head task)
 
 Within a slot the order is completions -> scheduling -> arrivals, and the
 task count N is read at slot end, so Little's law gives the mean completion
-time.  The slot loop is a Python loop over T slots; in the batched route
-mode (the main path) nothing in it reads a device value on the host, so
-the card runs ahead of the loop.
+time.  Scheduling is batched per slot: up to ``SimConfig.s_max`` idle
+servers act against one snapshot, steal conflicts resolved by weight
+priority and queue lengths.  The slot loop is a Python loop over T slots;
+in the batched route mode (the main path) nothing in it reads a device
+value on the host, so the card runs ahead of the loop.
 
 Routing modes:
   batched    — the slot's arrival batch routes through ONE launch of the
@@ -21,23 +33,28 @@ Routing modes:
                arrival scores against the workloads left by the previous
                one's commit; exact ties break by locality class, then a
                per-slot random priority (full BP) or candidate slot (pod).
+               The SQ family rides the pod kernel with unit rates (queue
+               length == workload), its replica triple as the candidates:
+               ties then break by replica slot.
   sequential — plain per-arrival PyTorch routing with random tie-breaks,
                the paper's model, what the batched path is checked against.
                It reads each slot's arrival count on the host.
 
 Random draws.  torch's generators cannot reproduce JAX's threefry stream,
-so a slot takes all of its random numbers through one seam, ``SlotDraws``.
-The default source (``TorchDraws``) fills it from a ``torch.Generator``;
-a test fills it from the JAX key derivation instead and then holds the
-port's slot step to the reference's, bit for bit.
+so a slot takes all of its random numbers through one seam: ``SlotDraws``
+(BP), ``SQDraws`` or ``FCFSDraws``.  The default source (``TorchDraws``)
+fills it from a ``torch.Generator``; a test fills it from the JAX key
+derivation instead and then holds the port's slot step to the reference's,
+bit for bit.
 
 Only the ``uniform`` scenario is ported (unit speeds, stationary traffic,
-uniform placement: the reference's homogeneous fast path).  Telemetry, the
-SQ and FCFS families and the grid entry points come with later slices.
+uniform placement: the reference's homogeneous fast path).  Telemetry and
+the grid entry points come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -47,15 +64,18 @@ import torch
 from ..kernels.ref import workload
 from ..kernels.route_commit import route_commit
 from ..scenarios.build import realize
-from .cluster import (GEOMETRIC, LOGNORMAL, Cluster, Rates,
-                      durations_from_normal, durations_from_uniform,
+from .cluster import (GEOMETRIC, LOCAL, LOGNORMAL, RACK, REMOTE, Cluster,
+                      Rates, durations_from_normal, durations_from_uniform,
                       locality_class, safe_inv_rates, sample_locals,
-                      uniform_open)
-from .policies import (PodSpec, bp_candidates_per_route, pod_candidate_classes,
-                       pod_candidates, route_balanced_pandas_full,
-                       route_pod_candidates)
+                      uniform_int, uniform_open)
+from .policies import (PodSpec, bp_candidates_per_route,
+                       jsqmw_candidates_per_schedule, lex_argmax,
+                       pod_candidate_classes, pod_candidates, rack_peer_of,
+                       remote_peer_of, route_balanced_pandas_full,
+                       route_jsq_local, route_pod_candidates)
 
 _F = torch.float32
+_INF = float("inf")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +100,7 @@ class SimConfig:
     T: int = 20_000               # total slots
     warmup: int = 4_000           # slots discarded before measuring
     a_max: int = 0                # max arrivals per slot (0 = auto from load)
+    s_max: int = 64               # max scheduling attempts per slot
     route_mode: str = "sequential"  # "sequential" | "batched"
     service_dist: str = GEOMETRIC   # "geometric" | "lognormal"
     sigma: float = 1.0              # log-normal shape
@@ -150,24 +171,73 @@ class BPState(NamedTuple):
     def zero(M: int, device="cpu") -> "BPState":
         """Empty cluster of M servers."""
         return BPState(torch.zeros((M, 3), dtype=torch.int32, device=device),
-                       torch.zeros(M, dtype=torch.bool, device=device),
-                       torch.zeros(M, dtype=_F, device=device),
-                       torch.zeros(M, dtype=torch.int32, device=device))
+                       *_idle_servers(M, device))
 
 
-_BP_DTYPES = (torch.int32, torch.bool, torch.float32, torch.int32)
+def _idle_servers(M: int, device):
+    """(busy, rem, cls) of M idle servers, the last three fields of every
+    family's state."""
+    return (torch.zeros(M, dtype=torch.bool, device=device),
+            torch.zeros(M, dtype=_F, device=device),
+            torch.zeros(M, dtype=torch.int32, device=device))
+
+
+class SQState(NamedTuple):
+    """SQ family state: one queue per server."""
+
+    Q: torch.Tensor          # int32 [M] queue lengths (tasks local to server)
+    busy: torch.Tensor       # bool  [M]
+    rem: torch.Tensor        # f32   [M]
+    cls: torch.Tensor        # int32 [M]
+
+    @staticmethod
+    def zero(M: int, device="cpu") -> "SQState":
+        """Empty cluster of M servers."""
+        return SQState(torch.zeros(M, dtype=torch.int32, device=device),
+                       *_idle_servers(M, device))
+
+
+class FCFSState(NamedTuple):
+    """FCFS state: one central queue feeding all servers."""
+
+    C: torch.Tensor          # int32 [] central queue length
+    busy: torch.Tensor       # bool  [M]
+    rem: torch.Tensor        # f32   [M]
+    cls: torch.Tensor        # int32 [M]
+
+    @staticmethod
+    def zero(M: int, device="cpu") -> "FCFSState":
+        """Empty cluster of M servers."""
+        return FCFSState(torch.zeros((), dtype=torch.int32, device=device),
+                         *_idle_servers(M, device))
+
+
+_STATE_DTYPES = (torch.int32, torch.bool, torch.float32, torch.int32)
+
+
+def state_from_numpy(kind, state, device="cpu"):
+    """A ``kind`` state (``BPState``, ``SQState`` or ``FCFSState``) from its
+    four arrays, e.g. the reference's state as numpy."""
+    return kind(*(torch.tensor(np.asarray(x), dtype=d, device=device)
+                  for x, d in zip(state, _STATE_DTYPES)))
+
+
+def state_to_numpy(state):
+    """The same state with numpy leaves."""
+    return type(state)(*(x.cpu().numpy() for x in state))
 
 
 def bp_state_from_numpy(state, device="cpu") -> BPState:
-    """A ``BPState`` from four arrays (Q, busy, rem, cls), e.g. the
-    reference's state as numpy."""
-    return BPState(*(torch.tensor(np.asarray(x), dtype=d, device=device)
-                     for x, d in zip(state, _BP_DTYPES)))
+    """A ``BPState`` from four arrays (Q, busy, rem, cls)."""
+    return state_from_numpy(BPState, state, device)
 
 
-def bp_state_to_numpy(state: BPState) -> BPState:
-    """The same state with numpy leaves."""
-    return BPState(*(x.cpu().numpy() for x in state))
+def sq_state_from_numpy(state, device="cpu") -> SQState:
+    """An ``SQState`` from four arrays (Q, busy, rem, cls)."""
+    return state_from_numpy(SQState, state, device)
+
+
+bp_state_to_numpy = sq_state_to_numpy = state_to_numpy
 
 
 def raw_sums_from_numpy(sums, device="cpu") -> RawSums:
@@ -205,68 +275,126 @@ class SlotDraws(NamedTuple):
     #                                            (pod, sequential)
 
 
+class SQDraws(NamedTuple):
+    """Every random number one slot of the SQ family consumes (S = min(s_max,
+    M) scheduling rows, d' = pod.d probes)."""
+
+    raw: torch.Tensor                     # int32 [] Poisson count, unclipped
+    locals_: torch.Tensor                 # int32 [A, n_rep] replica triples
+    dur: torch.Tensor                     # int32 [S, 3] duration per class
+    tie: torch.Tensor                     # f32 [S, M] tie uniforms, or
+    #                                       [S, 1 + d'] (pod)
+    grant: torch.Tensor                   # f32 [S] grant tie uniforms
+    rows: Optional[torch.Tensor] = None   # f32 [M] row priority (S < M)
+    cand: Optional[torch.Tensor] = None   # int32 [S, d'] probe offsets: d_rack
+    #                                       in [0, R - 1), then d_remote in
+    #                                       [0, M - R) (pod)
+    route: Optional[torch.Tensor] = None  # f32 [A, n_rep] route tie uniforms
+    #                                       (sequential)
+
+
+class FCFSDraws(NamedTuple):
+    """Every random number one slot of FCFS consumes (G = min(s_max, M))."""
+
+    raw: torch.Tensor          # int32 [] Poisson count, unclipped
+    rank: torch.Tensor         # f32 [M] grab order of the idle servers
+    locals_: torch.Tensor      # int32 [G, n_rep] replicas of the grabbed tasks
+    dur: torch.Tensor          # int32 [G, 3] duration per class
+
+
 class TorchDraws:
-    """Default draw source: ``draws(t)`` is slot t's ``SlotDraws``, in the
-    reference's distributions, from a ``torch.Generator`` on the device of
-    ``lam_t`` ([T] arrival intensity per slot).
+    """Default draw source: ``draws(t)`` is slot t's draws for ``family``
+    ("bp", "sq" or "fcfs"), in the reference's distributions, from a
+    ``torch.Generator`` on the device of ``lam_t`` ([T] arrival intensity
+    per slot).
 
     Draws are made for a block of slots at once (up to 256, fewer when a
-    slot's [a_max, M] class grid is large) and handed out as views, so a
-    slot costs no generator launches of its own.  The full-BP tie
-    permutation is the argsort of iid uniforms: a uniform permutation."""
+    slot's largest draw, BP's [a_max, M] class grid or full JSQ's [S, M]
+    ties, is large) and handed out as views, so a slot costs no generator
+    launches of its own.  The full-BP tie permutation is the argsort of
+    iid uniforms: a uniform permutation.  Bounded integers are scaled
+    uniforms (``uniform_int``)."""
 
-    _BLOCK_ELEMS = 1 << 22      # class-grid elements per block
+    _BLOCK_ELEMS = 1 << 22      # elements of a block's largest draw
 
     def __init__(self, gen: torch.Generator, cluster: Cluster, rates: Rates,
                  cfg: SimConfig, pod: Optional[PodSpec], a_max: int,
-                 lam_t: torch.Tensor):
+                 lam_t: torch.Tensor, family: str = "bp"):
         self.gen, self.cluster, self.cfg, self.pod = gen, cluster, cfg, pod
-        self.a_max, self.lam_t = a_max, lam_t
+        self.a_max, self.lam_t, self.family = a_max, lam_t, family
         self.sequential = cfg.route_mode == "sequential"
         self.p = rates.as_array(lam_t.device)                     # [3]
-        self.block = max(1, min(256, self._BLOCK_ELEMS // (a_max * cluster.M)))
-        if pod is not None:
-            self.cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
-                                                  lam_t.device)
+        M, dev = cluster.M, lam_t.device
+        self.S = min(cfg.s_max, M)
+        lanes = {"bp": a_max * M, "fcfs": M,
+                 "sq": max(M, self.S * (M if pod is None else 1 + pod.d))}
+        self.block = max(1, min(256, self._BLOCK_ELEMS // lanes[family]))
+        if pod is not None and family == "bp":
+            self.cand_cls = pod_candidate_classes(cluster.n_replicas, pod, dev)
+        if pod is not None and family == "sq":
+            R = cluster.rack_size
+            self.cand_hi = torch.tensor([max(R - 1, 1)] * pod.d_rack
+                                        + [max(M - R, 1)] * pod.d_remote,
+                                        dtype=_F, device=dev)
         self._t0, self._buf = None, None
 
-    def _fill(self, t0: int) -> SlotDraws:
+    def _dur(self, n: int, rows: int) -> torch.Tensor:
+        """int32 [n, rows, 3]: one draw a row, evaluated for every class."""
+        g, dev = self.gen, self.lam_t.device
+        if self.cfg.service_dist == GEOMETRIC:
+            return durations_from_uniform(uniform_open(g, (n, rows, 1), dev),
+                                          self.p)
+        if self.cfg.service_dist == LOGNORMAL:
+            z = torch.randn((n, rows, 1), generator=g, device=dev)
+            return durations_from_normal(z, self.p, self.cfg.sigma)
+        raise ValueError(f"unknown service distribution "
+                         f"{self.cfg.service_dist!r}")
+
+    def _fill(self, t0: int):
         """Draws for slots t0 .. t0 + block - 1, each field [n, ...]."""
         g, c, M, dev = self.gen, self.cluster, self.cluster.M, self.lam_t.device
+        rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
         lam = self.lam_t[t0:t0 + self.block]
         n = lam.shape[0]
         raw = torch.poisson(lam, generator=g).to(torch.int32)
+        if self.family == "fcfs":
+            return FCFSDraws(raw, rand(n, M), sample_locals(
+                g, c, n * self.S, dev).view(n, self.S, -1), self._dur(n, self.S))
         locals_ = sample_locals(g, c, n * self.a_max, dev).view(
             n, self.a_max, -1)
+        if self.family == "sq":
+            S, pod = self.S, self.pod
+            extra = {}
+            if S < M:
+                extra["rows"] = rand(n, M)
+            if pod is not None:
+                extra["cand"] = uniform_int(g, (n, S, pod.d), self.cand_hi, dev)
+            if self.sequential:
+                extra["route"] = rand(n, self.a_max, c.n_replicas)
+            return SQDraws(raw, locals_, self._dur(n, S),
+                           rand(n, S, M if pod is None else 1 + pod.d),
+                           rand(n, S), **extra)
         cls = locality_class(c, locals_)
-        if self.cfg.service_dist == GEOMETRIC:
-            dur = durations_from_uniform(uniform_open(g, (n, M, 1), dev), self.p)
-        elif self.cfg.service_dist == LOGNORMAL:
-            z = torch.randn((n, M, 1), generator=g, device=dev)
-            dur = durations_from_normal(z, self.p, self.cfg.sigma)
-        else:
-            raise ValueError(f"unknown service distribution "
-                             f"{self.cfg.service_dist!r}")
+        dur = self._dur(n, M)
         extra = {}
         if self.pod is None and self.sequential:
-            extra["tie_rnd"] = torch.rand((n, M), generator=g, device=dev)
+            extra["tie_rnd"] = rand(n, M)
         elif self.pod is None:
-            extra["prio"] = torch.rand((n, M), generator=g, device=dev).argsort(
-                dim=1).to(torch.int32)
+            extra["prio"] = rand(n, M).argsort(dim=1).to(torch.int32)
         else:
             ci, _, cv = pod_candidates(g, c, locals_, cls, self.pod,
                                        cand_cls=self.cand_cls)
             extra.update(cand_idx=ci, cand_valid=cv)
             if self.sequential:
-                extra["cand_rnd"] = torch.rand(ci.shape, generator=g,
-                                               device=dev)
+                extra["cand_rnd"] = rand(*ci.shape)
         return SlotDraws(raw, locals_, cls, dur, **extra)
 
-    def __call__(self, t: int) -> SlotDraws:
+    def __call__(self, t: int):
         if self._buf is None or not self._t0 <= t < self._t0 + self.block:
             self._t0, self._buf = t, self._fill(t)
         i = t - self._t0
-        return SlotDraws(*(None if x is None else x[i] for x in self._buf))
+        return type(self._buf)(*(None if x is None else x[i]
+                                 for x in self._buf))
 
 
 # ---------------------------------------------------------------------------
@@ -284,12 +412,21 @@ def _progress_service(busy, rem):
     return busy, rem, completed
 
 
-def _arrival_batch(draws: SlotDraws, a_max: int):
-    """Arrival mask (Poisson count clipped to a_max), per-server locality
-    classes of the arrivals and the clipped count."""
+def _arrival_batch(draws, a_max: int):
+    """Arrival mask (Poisson count clipped to a_max) and the clipped
+    count."""
     n = torch.clamp_max(draws.raw, a_max)
     mask = torch.arange(a_max, device=n.device) < n
-    return mask, draws.cls, (draws.raw - n).to(_F)
+    return mask, (draws.raw - n).to(_F)
+
+
+def _relation_rows(rack_of: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[S, M] locality class of server rows[s] serving a task queued at (=
+    local to) server n; ``rack_of`` is ``Cluster.rack_of`` on the device."""
+    n = torch.arange(rack_of.shape[0], device=rows.device)
+    same = rack_of[rows][:, None] == rack_of[None, :]
+    own = rows[:, None] == n[None, :]
+    return torch.where(own, LOCAL, torch.where(same, RACK, REMOTE))
 
 
 def _acc(sums: RawSums, *, in_half2: bool, N, arr, clipped, comp, starts,
@@ -408,9 +545,9 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
     busy, rem, completed = _progress_service(state.busy, state.rem)
     Q, busy, rem, cls_serv, starts, n_started = _bp_schedule(
         draws.dur, state.Q, busy, rem, state.cls)
-    mask, cls_arr, clipped = _arrival_batch(draws, a_max)
+    mask, clipped = _arrival_batch(draws, a_max)
     Q, sel, sel_cls = _bp_route_batch(
-        draws, Q, cls_arr, mask, inv_rate_m, pod,
+        draws, Q, draws.cls, mask, inv_rate_m, pod,
         sequential=(cfg.route_mode == "sequential"),
         class_tiebreak=class_tiebreak, cand_cls=cand_cls)
 
@@ -425,25 +562,265 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
 
 
 # ---------------------------------------------------------------------------
+# SQ family: JSQ-MaxWeight(-Pod) and JSQ-Priority
+# ---------------------------------------------------------------------------
+
+
+class StepConsts(NamedTuple):
+    """Per-run device constants of the SQ and FCFS steps (``step_consts``):
+    made once, so a slot copies nothing from the host."""
+
+    rack_of: torch.Tensor      # int64 [M] Cluster.rack_of
+    rates: torch.Tensor        # f32 [3] (alpha, beta, gamma)
+    lane_rate: Optional[torch.Tensor]  # f32 [1 + d'] rate of each JSQ-MW-Pod
+    #                                    probe: own, then rack, then remote
+    unit_inv: torch.Tensor     # f32 [3] ones: batched JSQ's kernel operand,
+    zero_cls: torch.Tensor     # int32 [a_max, n_rep] with class 0
+    one_valid: torch.Tensor    # bool [a_max, n_rep] candidates all valid
+
+
+def step_consts(cluster: Cluster, rates: Rates, pod: Optional[PodSpec],
+                a_max: int, device) -> StepConsts:
+    """The ``StepConsts`` of one run."""
+    r = rates.as_array(device)
+    lane = None if pod is None else r[pod_candidate_classes(1, pod, device).long()]
+    shape = (a_max, cluster.n_replicas)
+    return StepConsts(cluster.rack_of.to(device=device, dtype=torch.int64), r,
+                      lane, torch.ones(3, dtype=_F, device=device),
+                      torch.zeros(shape, dtype=torch.int32, device=device),
+                      torch.ones(shape, dtype=torch.bool, device=device))
+
+
+def _grant_conflicts(tgt, prio, has, Q, rnd):
+    """Resolve batched steal conflicts among S claimants: at most Q[n]
+    grants to queue n, higher-priority claimants first (prio = ascending
+    sort keys, then the uniforms ``rnd`` [S]).  Returns bool [S] granted.
+
+    Claimant i is granted iff its rank among same-target claimants is below
+    Q[tgt[i]]; the rank is a pairwise count of [S, S] staged compares."""
+    S = tgt.shape[0]
+    beats = torch.zeros((S, S), dtype=torch.bool, device=tgt.device)
+    eq = torch.ones((S, S), dtype=torch.bool, device=tgt.device)
+    for k in tuple(prio) + (rnd,):
+        # beats[i, j]: claimant j precedes i in (prio..., rnd) order
+        beats = beats | (eq & (k[None, :] < k[:, None]))
+        eq = eq & (k[None, :] == k[:, None])
+    same = (tgt[None, :] == tgt[:, None]) & has[None, :] & has[:, None]
+    rank = (same & beats).sum(dim=1)
+    return has & (rank < Q[tgt])
+
+
+def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
+                 consts: StepConsts, S: int, variant: str,
+                 pod: Optional[PodSpec]):
+    """Batched scheduling of the SQ family on the homogeneous path.
+
+    variant "maxweight": argmax of rate-weighted queue lengths over all M
+    (``pod`` None) or over own + d' sampled queues; "priority": own >
+    longest in rack > longest anywhere.  S == M takes every server as a
+    row; S < M the first S eligible servers in the order of ``draws.rows``.
+    Returns (Q', busy', rem', cls', starts [3], n_decisions, rows, tgt,
+    granted)."""
+    M = cluster.M
+    idle = ~busy
+    anyq = (Q > 0).any()
+    eligible = idle & ((Q > 0) | anyq)
+    if S == M:
+        # every server is its own scheduling attempt (row order is
+        # immaterial: grants tie-break on explicit uniforms)
+        rows = torch.arange(M, device=Q.device)
+        act = eligible
+    else:
+        # up to S eligible servers in random order (the rest retry next
+        # slot); ineligible servers tie at +inf, a stable sort keeps them
+        # in index order as the reference's does
+        rkey = torch.where(eligible, draws.rows, _INF)
+        rows = torch.argsort(rkey, stable=True)[:S]
+        act = eligible[rows]
+
+    qf = Q.to(_F)
+    if variant == "maxweight" and pod is None:
+        rel = _relation_rows(consts.rack_of, rows)              # [S, M]
+        w = qf[None, :] * consts.rates[rel]
+        cand = (Q > 0)[None, :].expand(S, M)
+        tgt = lex_argmax(w, draws.tie, mask=cand).long()
+        val = w.gather(1, tgt[:, None])[:, 0]
+        has = cand.any(dim=1) & act
+        prio = (-val,)
+    elif variant == "maxweight":
+        u = draws.cand
+        cand_idx = torch.cat([rows[:, None],
+                              rack_peer_of(cluster, rows, u[:, :pod.d_rack]),
+                              remote_peer_of(cluster, rows, u[:, pod.d_rack:])],
+                             dim=1)
+        qc = Q[cand_idx]
+        w = qc.to(_F) * consts.lane_rate
+        cand = qc > 0
+        c = lex_argmax(w, draws.tie, mask=cand).long()[:, None]
+        tgt = cand_idx.gather(1, c)[:, 0]
+        val = w.gather(1, c)[:, 0]
+        has = cand.any(dim=1) & act
+        prio = (-val,)
+    elif variant == "priority":
+        rel = _relation_rows(consts.rack_of, rows)              # [S, M]
+        nonempty = (Q > 0)[None, :]
+        own_has = Q[rows] > 0
+        rack_set = (rel == RACK) & nonempty
+        glob_set = (rel == REMOTE) & nonempty
+        wq = qf[None, :].expand(S, M)
+        rack_tgt = lex_argmax(wq, draws.tie, mask=rack_set).long()
+        glob_tgt = lex_argmax(wq, draws.tie, mask=glob_set).long()
+        rack_any = rack_set.any(dim=1)
+        glob_any = glob_set.any(dim=1)
+        tgt = torch.where(own_has, rows,
+                          torch.where(rack_any, rack_tgt, glob_tgt))
+        has = (own_has | rack_any | glob_any) & act
+        class_rank = torch.where(own_has, 0.0, torch.where(rack_any, 1.0, 2.0))
+        prio = (class_rank, -qf[tgt])
+    else:
+        raise ValueError(variant)
+
+    granted = _grant_conflicts(tgt, prio, has, Q, draws.grant)
+    Q = Q.index_add(0, tgt, -granted.to(torch.int32))
+    # locality class of (server rows[s], queue tgt[s]): pairwise, O(S)
+    rack_of = consts.rack_of
+    start_cls = torch.where(rows == tgt, LOCAL,
+                            torch.where(rack_of[rows] == rack_of[tgt],
+                                        RACK, REMOTE))
+    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0])
+    start_cls32 = start_cls.to(torch.int32)
+    if S == M:
+        # rows == arange(M): the per-row scatters are identity placements
+        busy = busy | granted
+        rem = torch.where(granted, work, rem)
+        cls = torch.where(granted, start_cls32, cls)
+    else:
+        busy = busy.index_copy(0, rows, busy[rows] | granted)
+        rem = rem.index_copy(0, rows, torch.where(granted, work, rem[rows]))
+        cls = cls.index_copy(0, rows, torch.where(granted, start_cls32,
+                                                  cls[rows]))
+    starts = _class_hits(start_cls, granted).sum(dim=0).to(_F)
+    return (Q, busy, rem, cls, starts, has.sum().to(_F), rows, tgt, granted)
+
+
+def _jsq_route_sequential(draws: SQDraws, Q, mask):
+    """Per-arrival join-the-shortest-local-queue, random ties, each arrival
+    seeing the previous one's commit.  Routes up to the last valid arrival
+    (the rest commit nothing): reads the arrival count on the host."""
+    n = int(mask.sum())
+    Q = Q.clone()
+    for b in range(n):
+        s = route_jsq_local(draws.route[b], Q, draws.locals_[b])
+        Q.index_put_((s.to(torch.int64),), mask[b].to(torch.int32),
+                     accumulate=True)
+    return Q
+
+
+def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
+             cluster: Cluster, cfg: SimConfig, consts: StepConsts,
+             variant: str, pod: Optional[PodSpec], a_max: int, measure: bool,
+             in_half2: bool):
+    """One slot of the SQ family on the homogeneous (uniform) path:
+    completions -> scheduling -> arrivals and routing -> accumulators.
+    Batched routing is one pod ``route_commit`` launch with unit rates:
+    Q embedded in column 0 of an [M, 3] queue, the replica triples as
+    candidates of class 0, all valid (ties by replica slot)."""
+    busy, rem, completed = _progress_service(state.busy, state.rem)
+    Q, busy, rem, cls_serv, starts, n_sched, *_ = _sq_schedule(
+        draws, cluster, state.Q, busy, rem, state.cls, consts=consts,
+        S=min(cfg.s_max, cluster.M), variant=variant, pod=pod)
+    mask, clipped = _arrival_batch(draws, a_max)
+    if cfg.route_mode == "sequential":
+        Q = _jsq_route_sequential(draws, Q, mask)
+    else:
+        Q3, _W, _sel, _scls, _val = route_commit(
+            torch.nn.functional.pad(Q[:, None], (0, 2)), mask,
+            consts.unit_inv, cand_idx=draws.locals_,
+            cand_cls=consts.zero_cls, cand_valid=consts.one_valid)
+        Q = Q3[:, 0]
+
+    busy_n = busy.sum().to(_F)
+    N = Q.sum().to(_F) + busy_n
+    arr = mask.sum().to(_F)
+    sums = _acc(sums, in_half2=in_half2, N=N, arr=arr, clipped=clipped,
+                comp=completed.sum().to(_F), starts=starts,
+                routed=starts.new_zeros(3), busy_n=busy_n, routes=arr,
+                scheds=n_sched, measure=measure)
+    return SQState(Q, busy, rem, cls_serv), sums
+
+
+# ---------------------------------------------------------------------------
+# FCFS: central queue, idle servers grab the head task
+# ---------------------------------------------------------------------------
+
+
+def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
+               cluster: Cluster, cfg: SimConfig, consts: StepConsts,
+               a_max: int, measure: bool, in_half2: bool):
+    """One slot of FCFS on the homogeneous path: up to G = min(s_max, M)
+    idle servers, in the random order of ``draws.rank``, each grab the
+    head task; the grabbed task's replicas are sampled at dequeue (iid of
+    everything else, so the law is the same).  Launches no kernel."""
+    G = min(cfg.s_max, cluster.M)
+    busy, rem, completed = _progress_service(state.busy, state.rem)
+    idle = ~busy
+    r = torch.where(idle, draws.rank, _INF)
+    rows = torch.argsort(r, stable=True)[:G]
+    locals_g = draws.locals_.to(torch.int64)                  # [G, n_rep]
+    rack_of = consts.rack_of
+    is_local = (locals_g == rows[:, None]).any(dim=1)
+    in_rack = (rack_of[locals_g] == rack_of[rows][:, None]).any(dim=1)
+    start_cls = torch.where(is_local, LOCAL, torch.where(in_rack, RACK, REMOTE))
+    grant = idle[rows] & (torch.arange(G, device=rows.device) < state.C)
+    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0])
+    C = state.C - grant.sum().to(torch.int32)
+    busy = busy.index_copy(0, rows, busy[rows] | grant)
+    rem = rem.index_copy(0, rows, torch.where(grant, work, rem[rows]))
+    cls = state.cls.index_copy(0, rows, torch.where(
+        grant, start_cls.to(torch.int32), state.cls[rows]))
+    starts = _class_hits(start_cls, grant).sum(dim=0).to(_F)
+
+    mask, clipped = _arrival_batch(draws, a_max)
+    C = C + mask.sum().to(torch.int32)
+
+    busy_n = busy.sum().to(_F)
+    N = C.to(_F) + busy_n
+    sums = _acc(sums, in_half2=in_half2, N=N, arr=mask.sum().to(_F),
+                clipped=clipped, comp=completed.sum().to(_F), starts=starts,
+                routed=starts.new_zeros(3), busy_n=busy_n,
+                routes=starts.new_zeros(()), scheds=grant.sum().to(_F),
+                measure=measure)
+    return FCFSState(C, busy, rem, cls), sums
+
+
+# ---------------------------------------------------------------------------
 # Algorithm registry + entry point
 # ---------------------------------------------------------------------------
 
-# paper §V: d = 8 = (2 rack-local + 6 remote) for BP-Pod routing
+# paper §V parameters: d = 8 = (2 rack-local + 6 remote) for BP-Pod routing;
+# d' = 12 = (6 + 6) for JSQ-MW-Pod scheduling.
 BP_POD_DEFAULT = PodSpec(d_rack=2, d_remote=6)
+JSQMW_POD_DEFAULT = PodSpec(d_rack=6, d_remote=6)
 
-ALGORITHMS = ("balanced_pandas", "balanced_pandas_pod")
-_BP_ALGOS = ("balanced_pandas", "balanced_pandas_pod",
-             "balanced_pandas_randomtie")
-_LATER = ("fcfs", "jsq_priority", "jsq_maxweight", "jsq_maxweight_pod")
+ALGORITHMS = (
+    "fcfs",
+    "jsq_priority",
+    "jsq_maxweight",
+    "jsq_maxweight_pod",
+    "balanced_pandas",
+    "balanced_pandas_pod",
+)
 
 
-def _check_algo(algo: str) -> None:
-    if algo in _LATER:
-        raise NotImplementedError(
-            f"{algo!r} is not ported yet: the SQ and FCFS families come "
-            "with ROADMAP queue A, item 4")
-    if algo not in _BP_ALGOS:
-        raise ValueError(f"unknown algorithm {algo!r}")
+def _family(algo: str) -> str:
+    if algo in ("balanced_pandas", "balanced_pandas_pod",
+                "balanced_pandas_randomtie"):
+        return "bp"
+    if algo == "fcfs":
+        return "fcfs"
+    if algo in ("jsq_maxweight", "jsq_maxweight_pod", "jsq_priority"):
+        return "sq"
+    raise ValueError(f"unknown algorithm {algo!r}")
 
 
 def _pod_for(algo: str, pod: Optional[PodSpec]) -> Optional[PodSpec]:
@@ -451,10 +828,12 @@ def _pod_for(algo: str, pod: Optional[PodSpec]) -> Optional[PodSpec]:
         return pod
     if algo == "balanced_pandas_pod":
         return BP_POD_DEFAULT
+    if algo == "jsq_maxweight_pod":
+        return JSQMW_POD_DEFAULT
     return None
 
 
-DrawSource = Callable[[int], SlotDraws]      # slot index -> that slot's draws
+DrawSource = Callable[[int], NamedTuple]     # slot index -> that slot's draws
 
 
 def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
@@ -462,37 +841,53 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
          a_max: int) -> RawSums:
     """The T-slot loop; returns the raw accumulators."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
-    inv = safe_inv_rates(rates.as_array(dev))
-    cand_cls = None
-    if pod is not None:
-        cand_cls = pod_candidate_classes(cluster.n_replicas, pod, dev).expand(
-            a_max, -1).contiguous()
-    state, sums = BPState.zero(cluster.M, dev), RawSums.zero(dev)
-    for t in range(cfg.T):
-        state, sums = _bp_step(
-            state, sums, draw(t), cluster=cluster,
-            cfg=cfg, inv_rate_m=inv, pod=pod, a_max=a_max,
-            measure=t >= cfg.warmup, in_half2=t >= half2_from,
+    family = _family(algo)
+    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max)
+    if family == "bp":
+        cand_cls = None
+        if pod is not None:
+            cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
+                                             dev).expand(a_max, -1).contiguous()
+        state = BPState.zero(cluster.M, dev)
+        step = functools.partial(
+            _bp_step, inv_rate_m=safe_inv_rates(rates.as_array(dev)), pod=pod,
             class_tiebreak=(algo != "balanced_pandas_randomtie"),
-            cand_cls=cand_cls)
+            cand_cls=cand_cls, **kw)
+    else:
+        consts = step_consts(cluster, rates, pod, a_max, dev)
+        if family == "sq":
+            state = SQState.zero(cluster.M, dev)
+            step = functools.partial(
+                _sq_step, consts=consts, pod=pod,
+                variant="priority" if algo == "jsq_priority" else "maxweight",
+                **kw)
+        else:
+            state = FCFSState.zero(cluster.M, dev)
+            step = functools.partial(_fcfs_step, consts=consts, **kw)
+    sums = RawSums.zero(dev)
+    for t in range(cfg.T):
+        state, sums = step(state, sums, draw(t), measure=t >= cfg.warmup,
+                           in_half2=t >= half2_from)
     return sums
 
 
 def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
              key, cfg: SimConfig = SimConfig(),
-             pod: Optional[PodSpec] = None, scenario=None,
+             pod: Optional[PodSpec] = None, scenario=None, pad=None,
              a_max: Optional[int] = None, *, device=None,
              draws: Optional[DrawSource] = None) -> SimResult:
     """Run one simulation and return derived metrics.
 
     load: fraction of the capacity edge (lambda = load * M * alpha on the
     uniform scenario).  key: an int seed or a ``torch.Generator`` on
-    ``device``.  device: None runs on the CUDA card (and raises without
-    one); pass "cpu" to run on the CPU.  draws: a draw source replacing the
-    default ``TorchDraws``: a callable from slot index to ``SlotDraws``."""
-    _check_algo(algo)
+    ``device``.  pad: the reference's canonical sweep padding; only None is
+    ported.  device: None runs on the CUDA card (and raises without one);
+    pass "cpu" to run on the CPU.  draws: a draw source replacing the
+    default ``TorchDraws``: a callable from slot index to the family's
+    draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``)."""
+    family = _family(algo)
     dev = resolve_device(device)
-    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, device=dev)
+    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
     lam = float(load) * lam_cap
     pod = _pod_for(algo, pod)
     if a_max is None:
@@ -501,7 +896,7 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(key))
         lam_t = torch.tensor(lam, dtype=_F, device=dev) * scen.lam_shape
-        draws = TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t)
+        draws = TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t, family)
     sums = _run(draws, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
                 pod=pod, a_max=a_max)
     return summarize(sums, algo, cluster, rates, pod)
@@ -511,7 +906,7 @@ def summarize(s: RawSums, algo: str, cluster: Cluster, rates: Rates,
               pod: Optional[PodSpec]) -> SimResult:
     """Reduce raw sums to a ``SimResult`` (Little's-law mean delay,
     locality fractions, drift, clip fraction, probe complexity)."""
-    _check_algo(algo)
+    family = _family(algo)
     slots = torch.clamp_min(s.slots, 1.0)
     mean_N = s.sum_N / slots
     lam_hat = s.arrivals / slots
@@ -519,8 +914,18 @@ def summarize(s: RawSums, algo: str, cluster: Cluster, rates: Rates,
     h = torch.clamp_min(slots / 2.0, 1.0)
     starts_total = torch.clamp_min(s.starts.sum(-1, keepdim=True), 1.0)
     routed_total = torch.clamp_min(s.routed.sum(-1, keepdim=True), 1.0)
-    route_cand = bp_candidates_per_route(cluster, pod)
-    sched_cand = 1  # own sub-queues only — purely local information
+    if family == "bp":
+        route_cand = bp_candidates_per_route(cluster, pod)
+        sched_cand = 1  # own sub-queues only — purely local information
+    elif algo in ("jsq_maxweight", "jsq_maxweight_pod"):
+        route_cand = cluster.n_replicas
+        sched_cand = jsqmw_candidates_per_schedule(cluster, pod)
+    elif algo == "jsq_priority":
+        route_cand = cluster.n_replicas
+        sched_cand = cluster.M
+    else:  # fcfs
+        route_cand = 0
+        sched_cand = 1
     f = lambda x: torch.tensor(float(x), dtype=_F, device=slots.device)
     return SimResult(
         mean_tasks_in_system=mean_N,

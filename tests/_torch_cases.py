@@ -62,3 +62,21 @@ def pod_route_case(seed: int, M: int, B: int, C: int, outside: bool = True):
         cv[B - 1] = False
         cc[B - 2] = 3
     return W, ci, cc, cv, inv
+
+
+def jsq_operand(M: int, B: int, seed: int):
+    """Batched JSQ routing's ``route_commit`` pod operand (numpy): Q [M, 3]
+    int32 nonzero in column 0 only, with three distinct lengths, so that
+    equal queues tie across a triple's slots; cand_idx [B, 3] distinct
+    replica triples, every third of them three servers of one length;
+    cand_cls all 0, cand_valid all True; inv_rates ones(3)."""
+    rng = np.random.default_rng(seed)
+    Q = np.zeros((M, 3), np.int32)
+    Q[:, 0] = rng.integers(0, 3, M)
+    ci = np.stack([rng.choice(M, 3, replace=False) for _ in range(B)])
+    for b in range(0, B, 3):
+        same = np.flatnonzero(Q[:, 0] == Q[ci[b, 0], 0])
+        if len(same) >= 3:
+            ci[b] = rng.choice(same, 3, replace=False)
+    return (Q, ci.astype(np.int32), np.zeros((B, 3), np.int32),
+            np.ones((B, 3), bool), np.ones(3, np.float32))

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import pod_route_case, valid_patterns
+from _torch_cases import jsq_operand, pod_route_case, valid_patterns
 from repro_torch import kernels as tk
 from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
-from repro_torch.core.simulator import BP_POD_DEFAULT, SlotDraws
+from repro_torch.core.simulator import _family, _pod_for
 from repro_torch.kernels import (pod_route_ref, queue_update_ref,
                                  route_commit_ref, weighted_argmin_ref)
 from repro_torch.kernels.pod_route import launch as pod_route_launch
@@ -78,6 +78,19 @@ def _assert_route_commit_equal(dev, Q, valid, inv, **kw):
     torch.cuda.synchronize()
     for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, cuda):
         assert torch.equal(a, b.cpu()), (sorted(kw), name)
+
+
+@pytest.mark.parametrize("M,B,lam", [(500, 16, 2.5), (500, 22, 4.5), (5000, 90, 45.0)])
+@pytest.mark.parametrize("pattern", ["none", "last", "first", "poisson", "gaps"])
+def test_cuda_route_commit_pod_jsq_operand(dev, M, B, lam, pattern):
+    """Batched JSQ routing's operand (C=3 replica triples, class 0, all
+    valid, unit rates, Q in column 0 with slot-order ties) at the batches
+    of M=500, loads 0.5 / 0.9, and of M=5000: equal to the plain version
+    to the bit on every ``valid`` pattern."""
+    Q, ci, cc, cv, inv = jsq_operand(M, B, M + B)
+    valid = valid_patterns(B, lam, np.random.default_rng(B))[pattern]
+    _assert_route_commit_equal(dev, Q, valid, inv, cand_idx=ci, cand_cls=cc,
+                               cand_valid=cv)
 
 
 @pytest.mark.parametrize("M,B,C,lam", [(500, 22, 11, 4.5), (5000, 90, 11, 45.0),
@@ -705,26 +718,34 @@ def test_cuda_routing_chain_equals_plain_chain(dev, route):
         assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[1], b[1].cpu()), tick
 
 
-@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod"])
-def test_simulate_cuda_path_equals_cpu_path_on_shared_draws(dev, algo):
-    """Fed the same draws (made on the CPU), the CUDA path (kernel) and the
-    CPU path (plain version) give bit-identical results."""
+@pytest.mark.parametrize("mode", ["batched", "sequential"])
+@pytest.mark.parametrize("algo,s_max", [
+    ("balanced_pandas", 64), ("balanced_pandas_pod", 64), ("jsq_maxweight", 64),
+    ("jsq_maxweight_pod", 64), ("jsq_maxweight_pod", 8), ("jsq_priority", 64),
+    ("fcfs", 64)])
+def test_simulate_cuda_path_equals_cpu_path_on_shared_draws(dev, algo, s_max, mode):
+    """Fed the same draws (made on the CPU), the CUDA path and the CPU path
+    give bit-identical results in both route modes; in batched mode the BP
+    and SQ families launch route_commit once a slot (the CPU path runs its
+    plain version), FCFS never, and sequential mode never launches it.
+    s_max=8 runs the S < M scheduling branch."""
     cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
-    cfg = SimConfig(T=500, warmup=100, route_mode="batched")
-    pod = BP_POD_DEFAULT if algo == "balanced_pandas_pod" else None
+    cfg = SimConfig(T=500, warmup=100, s_max=s_max, route_mode=mode)
+    pod = _pod_for(algo, None)
     a_max = cfg.resolve_a_max(0.9 * rates.alpha * cl.M)
     lam_t = torch.full((cfg.T,), 0.9 * rates.alpha * cl.M)
     out = []
     for run_dev in ("cpu", dev):
         src = TorchDraws(torch.Generator().manual_seed(3), cl, rates, cfg, pod,
-                         a_max, lam_t)
+                         a_max, lam_t, _family(algo))
 
         def draw(t, src=src, run_dev=run_dev):
-            return SlotDraws(*(None if d is None else d.to(run_dev)
-                               for d in src(t)))
+            d = src(t)
+            return type(d)(*(None if x is None else x.to(run_dev) for x in d))
         tk.reset_launch_counts()
         out.append(simulate(algo, cl, rates, 0.9, 0, cfg, a_max=a_max,
                             device=run_dev, draws=draw))
-    assert sum(tk.LAUNCHES.values()) == cfg.T
+    launches = 0 if algo == "fcfs" or mode == "sequential" else cfg.T
+    assert sum(tk.LAUNCHES.values()) == launches
     for name, a, b in zip(out[0]._fields, *out):
-        assert torch.equal(a, b.cpu()), name
+        assert torch.equal(a, b.cpu()) or (a.isnan().all() and b.isnan().all()), name

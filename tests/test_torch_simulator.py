@@ -9,7 +9,9 @@ servers and every accumulator must be equal after every slot.
 Simulator parity (seed-spread confidence intervals) lives in
 tests/test_torch_sim_*.py, which run longer.
 """
+import dataclasses
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -148,21 +150,21 @@ def test_state_round_trips_through_numpy():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod"])
+@pytest.mark.parametrize("algo", jsim.ALGORITHMS)
 def test_summarize_matches_jax_on_the_same_sums(algo):
     """Given the reference's raw sums, the port's SimResult is the
     reference's, field for field."""
-    jres = jsim.simulate(algo, CL_J, R_J, 0.7, jax.random.PRNGKey(2),
-                         jsim.SimConfig(T=800, warmup=200, route_mode="batched"))
+    cfg = jsim.SimConfig(T=800, warmup=200, route_mode="batched")
+    jres = jsim.simulate(algo, CL_J, R_J, 0.7, jax.random.PRNGKey(2), cfg)
     scen, lam_cap = jrealize(get_scenario(None), CL_J, R_J, 800)
     lam = 0.7 * lam_cap
     sums, _ = jsim._run(jax.random.PRNGKey(2), jnp.float32(lam), scen, algo=algo,
-                        cluster=CL_J, rates=R_J,
-                        cfg=jsim.SimConfig(T=800, warmup=200, route_mode="batched"),
-                        pod=POD_J[algo], a_max=jsim.SimConfig().resolve_a_max(lam),
+                        cluster=CL_J, rates=R_J, cfg=cfg,
+                        pod=jsim._pod_for(algo, None),
+                        a_max=jsim.SimConfig().resolve_a_max(lam),
                         homo_rates=True)
     tres = tsim.summarize(tsim.raw_sums_from_numpy([np.asarray(x) for x in sums]),
-                          algo, CL_T, R_T, POD_T[algo])
+                          algo, CL_T, R_T, tsim._pod_for(algo, None))
     for name, a, b in zip(tsim.SimResult._fields, tres, jres):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
 
@@ -173,17 +175,38 @@ def test_realize_uniform_matches_jax_and_rejects_other_scenarios():
     assert tcap == jcap
     np.testing.assert_array_equal(tscen.lam_shape.numpy(), np.asarray(jscen.lam_shape))
     np.testing.assert_array_equal(tscen.base_speed.numpy(), np.asarray(jscen.base_speed))
-    with pytest.raises(NotImplementedError, match="A, item 5"):
+    with pytest.raises(NotImplementedError, match="A, item 3"):
         trealize("slow_rack", CL_T, R_T, 100)
 
 
 def test_entry_point_refuses_what_is_not_ported_and_needs_a_device_choice():
     cfg = tsim.SimConfig(T=10, warmup=2, route_mode="batched")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A, item 3"):
+        tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg, pad="x",
+                      device="cpu")
     with pytest.raises(ValueError):
         tsim.simulate("nope", CL_T, R_T, 0.5, 0, cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tsim.simulate("balanced_pandas", CL_T, R_T, 0.5, 0, cfg)
     assert tsim.SimConfig().resolve_a_max(4.5) == jsim.SimConfig().resolve_a_max(4.5)
+
+
+def test_config_fields_and_algorithms_equal_the_reference():
+    """SimConfig's field names, defaults and order, and the registry."""
+    got = [(f.name, f.default) for f in dataclasses.fields(tsim.SimConfig)]
+    want = [(f.name, f.default) for f in dataclasses.fields(jsim.SimConfig)]
+    assert got == want
+    assert tsim.ALGORITHMS == jsim.ALGORITHMS
+    assert tsim.JSQMW_POD_DEFAULT.d_rack == jsim.JSQMW_POD_DEFAULT.d_rack == 6
+    assert tsim.JSQMW_POD_DEFAULT.d_remote == jsim.JSQMW_POD_DEFAULT.d_remote == 6
+
+
+@pytest.mark.parametrize("ours,theirs", [(tsim.simulate, jsim.simulate),
+                                         (trealize, jrealize)])
+def test_positional_parameters_equal_the_reference(ours, theirs):
+    """The positional parameters (names and order) are the reference's;
+    the port adds keyword-only ones (device, draws) after them."""
+    positional = lambda f: [p.name for p in inspect.signature(f).parameters.values()
+                            if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert positional(ours) == positional(theirs)
