@@ -1,9 +1,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check what comes out.
 
     python3 chip_smoke.py            # the full check (one card)
-    python3 chip_smoke.py --quick    # a short first run: build, kernels, T/20
+    python3 chip_smoke.py --quick    # a short first run: build, kernels,
+                                     # T/20 (at least 5 000 slots)
     python3 chip_smoke.py --profile  # only timings: the slot profile
-                                     # (BP, BP-Pod, JSQ-MaxWeight-Pod),
+                                     # (BP, BP-Pod, JSQ-MaxWeight-Pod, on
+                                     # uniform and on rack_outage),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -28,14 +30,22 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      kernel that only waits and stores, timed the same way, launched
      plainly and as a dependent launch.
      route_commit's pod variant also at batched JSQ routing's operand
-     (C=3 replica triples, class 0, all valid, unit rates, slot-order ties).
+     (C=3 replica triples, class 0, all valid, unit rates, slot-order ties),
+     and both variants are timed at the [M, 3] operand that BP hands them on
+     a heterogeneous fleet (a drained rack at +inf, a slow rack, a degraded
+     remote tier) beside the [3] operand of the uniform scenario.
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size, for
-     every family (and JSQ-MaxWeight-Pod with s_max < M); then
-     Balanced-Pandas and BP-Pod at paper scale (M=500) and at M=5000,
-     JSQ-MaxWeight-Pod likewise, JSQ-MaxWeight, JSQ-Priority and FCFS at
-     M=500.  The launch counters are zeroed just before each run and read
-     just after: route_commit must launch once per slot (FCFS: never).
+     every family (and JSQ-MaxWeight-Pod with s_max < M), on `uniform` and
+     on compose("slow_rack", "network_degraded"); then Balanced-Pandas and
+     BP-Pod at paper scale (M=500) and at M=5000, JSQ-MaxWeight-Pod
+     likewise, JSQ-MaxWeight, JSQ-Priority and FCFS at M=500, all on
+     `uniform`; then the heterogeneous scenarios at M=500 (slow_rack,
+     rack_outage, network_degraded, mmpp_bursty) and the placement axis at
+     M=100 (zipf_hotspot, hetero_storm).  The launch counters are zeroed
+     just before each run and read just after: route_commit must launch
+     once per slot (FCFS: never), at the [M, 3] operand exactly when BP
+     runs on a heterogeneous fleet.
   4. complexity (paper §IV-C), on the port's public functions: probes per
      decision; microseconds per routing decision of weighted_argmin (O(M))
      and pod_route (O(d)) as M grows; the device time of the tick's
@@ -203,19 +213,40 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
-RATES = ("homo", "hetero", "dead")
+RATES = ("homo", "hetero", "dead", "fleet")
+PAPER_RATES = (0.01, 0.005, 0.002)
+
+
+def fleet_inv_rates(M: int, K: int = 10) -> np.ndarray:
+    """The [M, 3] inverse rates BP hands route_commit on a heterogeneous
+    fleet (the simulator's ``inv_rate_matrix``, paper rates): rack 0
+    drained (+inf, as rack_outage in its window), rack 1 at half speed (as
+    slow_rack), every server's remote tier at a quarter (as
+    network_degraded's gamma)."""
+    speed = np.ones((M, 3), np.float32)
+    R = M // K
+    speed[:R] = 0.0
+    speed[R:2 * R] *= np.float32(0.5)
+    speed[:, 2] *= np.float32(0.25)
+    rate = speed * np.asarray(PAPER_RATES, np.float32)
+    with np.errstate(divide="ignore"):
+        return np.where(rate > 0, np.float32(1.0) / np.maximum(rate, np.float32(1e-12)),
+                        np.float32(np.inf)).astype(np.float32)
 
 
 def kernel_inputs(M: int, B: int, C: int, rates: str, seed: int, dev, valid=None,
                   class3: bool = False):
     """Tie-forcing inputs: few distinct queue lengths, and ``rates`` "homo"
     (the [3] lattice operand), "hetero" (pooled [M, 3] rates with dead
-    servers and dead rate columns) or "dead" (every rate dead).  ``valid``
+    servers and dead rate columns), "dead" (every rate dead) or "fleet"
+    (``fleet_inv_rates``, the main path's [M, 3] operand).  ``valid``
     defaults to the 3B/4 prefix the timings have used since the first
     slice; ``class3`` draws the full variant's classes from 0..3 with an
     all-class-3 row."""
     rng = np.random.default_rng(seed)
-    if rates != "homo":
+    if rates == "fleet":
+        inv = fleet_inv_rates(M)
+    elif rates != "homo":
         pool = np.exp(rng.uniform(np.log(1e-2), np.log(1e2), (4, 3)))
         inv = pool[rng.integers(4, size=M)].astype(np.float32)
         inv[rng.choice(M, size=max(1, M // 8), replace=False)] = np.inf
@@ -285,7 +316,9 @@ def check_kernels(dev, quick: bool) -> dict:
     homogeneous, heterogeneous and all-dead rates, prio given and absent.
     Then timed at the main path's shapes with two valid prefixes: 3B/4
     (comparable with the earlier slices) and round(lambda), the
-    simulator's mean arrival count."""
+    simulator's mean arrival count, at the uniform scenario's [3] operand
+    and at the heterogeneous fleet's [M, 3] operand (``fleet_inv_rates``).
+    Returns {(variant, M, valid is round(lambda), rates): row}."""
     from repro_torch.kernels import route_commit, route_commit_ref
 
     err = {}
@@ -331,12 +364,16 @@ def check_kernels(dev, quick: bool) -> dict:
                     f"{' (prio given and absent)' if variant == 'full' else ''}")
             if M > 5000:
                 continue
-            # time at the main path's operand (homogeneous [3] rates)
-            for n_valid in (max(1, (3 * B) // 4), int(lam + 0.5)):
-                x = kernel_inputs(M, B, C, "homo", 0, dev, np.arange(B) < n_valid)
-                rows[(variant, M, n_valid == int(lam + 0.5))] = time_route_commit(
-                    x, variant, quick, f"route_commit_{variant} M={M} B={B}"
-                    f"{'' if variant == 'full' else f' C={C}'} valid={n_valid}")
+            # time at the main path's operands: [3] on uniform, [M, 3] on a
+            # heterogeneous fleet
+            for rates in ("homo", "fleet"):
+                for n_valid in (max(1, (3 * B) // 4), int(lam + 0.5)):
+                    x = kernel_inputs(M, B, C, rates, 0, dev, np.arange(B) < n_valid)
+                    rows[(variant, M, n_valid == int(lam + 0.5), rates)] = \
+                        time_route_commit(
+                            x, variant, quick, f"route_commit_{variant} M={M} B={B}"
+                            f"{'' if variant == 'full' else f' C={C}'} valid={n_valid} "
+                            f"inv={'[3]' if rates == 'homo' else '[M,3] fleet'}")
     for key, r in rows.items():
         r["max_abs_err"] = err[key[0]]
     return rows
@@ -573,76 +610,113 @@ def check_small_run_matches_cpu(dev):
     """At a small size, the CUDA path and the port's CPU path, fed the
     same draws (made on the CPU), must give the same sums bit for bit:
     every family, and JSQ-MaxWeight-Pod also with s_max < M (S < M
-    scheduling rows)."""
+    scheduling rows), on `uniform` and on compose("slow_rack",
+    "network_degraded") (per-server speeds and a per-class window: the
+    [M, 3] operand, the speed gathers and the servable masks)."""
     from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
     from repro_torch.core.simulator import _family, _pod_for
+    from repro_torch.scenarios import compose, realize
 
     cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
     cases = [(a, 64) for a in ("balanced_pandas", "balanced_pandas_pod",
                                "jsq_maxweight_pod", "jsq_maxweight",
                                "jsq_priority", "fcfs")]
     cases.append(("jsq_maxweight_pod", 8))
-    for algo, s_max in cases:
-        cfg = SimConfig(T=600, warmup=150, s_max=s_max, route_mode="batched")
-        pod = _pod_for(algo, None)
-        a_max = cfg.resolve_a_max(0.9 * rates.alpha * cl.M)
-        results = []
-        lam_t = torch.full((cfg.T,), 0.9 * rates.alpha * cl.M)
-        for run_dev in ("cpu", dev):
-            src = TorchDraws(torch.Generator().manual_seed(5), cl, rates, cfg,
-                             pod, a_max, lam_t, _family(algo))
+    for scenario in (None, compose("slow_rack", "network_degraded")):
+        label = getattr(scenario, "name", "uniform")
+        for algo, s_max in cases:
+            cfg = SimConfig(T=600, warmup=150, s_max=s_max, route_mode="batched")
+            pod = _pod_for(algo, None)
+            scen, lam_cap = realize(scenario, cl, rates, cfg.T, device="cpu")
+            a_max = cfg.resolve_a_max(0.9 * lam_cap)
+            results = []
+            lam_t = torch.tensor(0.9 * lam_cap, dtype=torch.float32) * scen.lam_shape
+            for run_dev in ("cpu", dev):
+                src = TorchDraws(torch.Generator().manual_seed(5), cl, rates, cfg,
+                                 pod, a_max, lam_t, _family(algo), scen)
 
-            def draw(t, src=src, run_dev=run_dev):
-                d = src(t)
-                return type(d)(*(None if v is None else v.to(run_dev) for v in d))
-            results.append(simulate(algo, cl, rates, 0.9, 0, cfg, a_max=a_max,
-                                    device=run_dev, draws=draw))
-        for name, a, b in zip(results[0]._fields, *results):
-            if not torch.equal(a.cpu(), b.cpu()) and not (
-                    a.isnan().all() and b.cpu().isnan().all()):
-                fail(f"{algo} s_max={s_max}: {name} differs between CPU and "
-                     f"CUDA paths ({a} vs {b})")
-        log(f"  {algo} s_max={s_max}: CUDA path equals the CPU path on a small "
-            f"run (M=20, T=600, shared draws)")
+                def draw(t, src=src, run_dev=run_dev):
+                    d = src(t)
+                    return type(d)(*(None if v is None else v.to(run_dev) for v in d))
+                results.append(simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
+                                        a_max=a_max, device=run_dev, draws=draw))
+            for name, a, b in zip(results[0]._fields, *results):
+                if not torch.equal(a.cpu(), b.cpu()) and not (
+                        a.isnan().all() and b.cpu().isnan().all()):
+                    fail(f"{algo} s_max={s_max} on {label}: {name} differs between "
+                         f"CPU and CUDA paths ({a} vs {b})")
+            log(f"  {algo} s_max={s_max} on {label}: CUDA path equals the CPU path "
+                f"on a small run (M=20, T=600, shared draws)")
 
 
 def run_simulations(dev, quick: bool) -> dict:
     """The runs at full width, each with the launch counters zeroed just
-    before it and read just after: (algo, cluster, load, T, warmup)."""
+    before it and read just after: (algo, cluster, load, T, warmup,
+    scenario).  The uniform runs first, then the heterogeneous fleet,
+    traffic and placement scenarios."""
     from repro_torch.core import Cluster, Rates, SimConfig, simulate
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import (LAUNCHES, MATRIX_LAUNCHES,
+                                     reset_launch_counts)
+    from repro_torch.scenarios import get_scenario, realize
 
-    rates = Rates(0.01, 0.005, 0.002)
+    rates = Rates(*PAPER_RATES)
     paper, big = Cluster(M=500, K=10), Cluster(M=5000, K=50)
+    placed = Cluster(M=100, K=10)     # the capacity LP at M=500 takes minutes
     scale = 20 if quick else 1
     runs = []
     for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
-        runs += [(algo, paper, load, 40_000, 10_000) for load in (0.5, 0.9)]
-        runs.append((algo, big, 0.9, 10_000, 2_500))
+        # JSQ-MaxWeight-Pod cut from T=40 000 to keep the smoke under ~450 s
+        T, warmup = (20_000, 5_000) if algo == "jsq_maxweight_pod" else (40_000, 10_000)
+        runs += [(algo, paper, load, T, warmup, None) for load in (0.5, 0.9)]
+        runs.append((algo, big, 0.9, 10_000, 2_500, None))
     # cut from T=10 000 to keep the whole smoke under ~450 s (PERF.md §4)
-    runs += [(algo, paper, 0.5, 5_000, 1_250)
+    runs += [(algo, paper, 0.5, 5_000, 1_250, None)
              for algo in ("jsq_maxweight", "jsq_priority")]
-    runs.append(("fcfs", paper, 0.15, 5_000, 1_250))
+    runs.append(("fcfs", paper, 0.15, 5_000, 1_250, None))
+    hetero = [(algo, paper, load, scenario)
+              for algo in ("balanced_pandas", "balanced_pandas_pod")
+              for scenario, load in (("slow_rack", 0.9), ("rack_outage", 0.5))]
+    hetero += [("balanced_pandas_pod", paper, 0.9, "network_degraded"),
+               ("balanced_pandas_pod", paper, 0.5, "mmpp_bursty"),
+               ("jsq_maxweight_pod", paper, 0.9, "slow_rack"),
+               ("fcfs", paper, 0.15, "rack_outage")]
+    runs += [(algo, cl, load, 5_000, 1_250, scenario)
+             for algo, cl, load, scenario in hetero]
+    # T=10 000: at M=100 the backlog's swing at T=5 000 is ~5% of the
+    # measured arrivals, the throughput gate's width (PERF.md §4)
+    runs += [(algo, placed, 0.5, 10_000, 2_500, scenario)
+             for scenario in ("zipf_hotspot", "hetero_storm")
+             for algo in ("balanced_pandas_pod", "jsq_maxweight_pod")]
     kernel = {"balanced_pandas": "route_commit_full", "fcfs": None}
     launches = {"route_commit_full": 0, "route_commit_pod": 0}
-    for algo, cl, load, T, warmup in runs:
-        T, warmup = T // scale, warmup // scale
+    for algo, cl, load, T, warmup, scenario in runs:
+        # --quick: T/20, but at least 5 000 slots, which the throughput gate
+        # needs at load 0.5 (JSQ-MaxWeight-Pod's backlog is ~250 slots deep)
+        T, warmup = max(T // scale, min(T, 5_000)), max(warmup // scale, min(warmup, 1_250))
         cfg = SimConfig(T=T, warmup=warmup, route_mode="batched")
         name = kernel.get(algo, "route_commit_pod")
+        # BP hands route_commit the [M, 3] operand on every fleet that is
+        # not the uniform one; batched JSQ routing keeps unit rates
+        matrix = name is not None and algo.startswith("balanced_pandas") and \
+            not get_scenario(scenario).fleet.uniform
+        # the host's realization, capacity LP included; simulate's own
+        # realization then finds the LP's edge in its cache
+        t0 = time.perf_counter()
+        lam = load * realize(scenario, cl, rates, T, device="cpu")[1]
+        realize_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        r = simulate(algo, cl, rates, load, 1, cfg, device=dev)
+        r = simulate(algo, cl, rates, load, 1, cfg, scenario=scenario, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
+        counts, at_matrix = dict(LAUNCHES), dict(MATRIX_LAUNCHES)
         if name is not None:
             launches[name] += counts[name]
         f = lambda x: float(x)
         v = lambda x: [round(float(y), 6) for y in x]
-        lam = load * cl.M * rates.alpha
         thr = f(r.throughput) / f(r.arrival_rate_hat)
-        log(f"  {algo:20s} M={cl.M} load={load} T={T}: "
+        log(f"  {algo:20s} {scenario or 'uniform'} M={cl.M} load={load} T={T}: "
             f"mean_completion_slots={f(r.mean_completion_slots):.4f} "
             f"throughput/arrivals={thr:.5f} locality={v(r.locality_fractions)} "
             f"routed={v(r.routed_fractions)} drift={f(r.drift):.4f} "
@@ -650,9 +724,13 @@ def run_simulations(dev, quick: bool) -> dict:
             f"route_candidates={f(r.route_candidates_per_decision):.0f} "
             f"sched_candidates={f(r.sched_candidates_per_decision):.0f} "
             f"wall={wall:.2f}s slots/s={T / wall:.1f} "
-            f"routed_tasks/s={lam * T / wall:.1f} launches={counts}")
+            f"routed_tasks/s={lam * T / wall:.1f} launches={counts} "
+            f"at_[M,3]={at_matrix} realize={realize_s:.3f}s")
         if name is not None and counts[name] != T:
             fail(f"{algo}: {name} launched {counts[name]} times in {T} slots")
+        if name is not None and at_matrix[name] != (T if matrix else 0):
+            fail(f"{algo} on {scenario}: {at_matrix[name]} of {T} launches at the "
+                 f"[M, 3] operand, expected {T if matrix else 0}")
         other = sum(c for k, c in counts.items() if k != name)
         if other:
             fail(f"{algo}: unexpected launches {counts}")
@@ -829,42 +907,50 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
 
 def profile_slots(dev, slots: int = 400) -> None:
     """Where a slot's time goes on the card: torch.profiler over ``slots``
-    slots of BP, BP-Pod and JSQ-MaxWeight-Pod at load 0.9, M=500 and M=5000 (a
-    CUDA-graph-free, eager loop).  Prints wall per slot, device busy time
-    per slot, the device's idle share, kernel launches per slot,
-    route_commit's device time per slot and the top kernels."""
+    slots of BP, BP-Pod and JSQ-MaxWeight-Pod at load 0.9, M=500 and M=5000,
+    on `uniform`, and at M=500 on rack_outage (one window: each slot reads
+    ``speed_at`` and BP its [M, 3] inverse rates) (a CUDA-graph-free,
+    eager loop).  Prints wall per slot, device busy time per slot, the
+    device's idle share, kernel launches per slot, route_commit's device
+    time per slot and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Cluster, Rates, SimConfig, simulate
 
-    rates = Rates(0.01, 0.005, 0.002)
+    rates = Rates(*PAPER_RATES)
     cfg = SimConfig(T=slots, warmup=0, route_mode="batched")
-    for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50)):
-        for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
-            simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)      # warm
+    algos = ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod")
+    cases = [(cl, algo, None) for cl in (Cluster(M=500, K=10), Cluster(M=5000, K=50))
+             for algo in algos]
+    cases += [(Cluster(M=500, K=10), algo, "rack_outage") for algo in algos]
+    for cl, algo, scenario in cases:
+        run = lambda: simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
+                               device=dev)
+        run()                                                     # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                simulate(algo, cl, rates, 0.9, 0, cfg, device=dev)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            kern = [e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
-            by_name: dict = {}
-            for e in kern:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            rc = sum(us for name, us in by_name.items() if "route_commit" in name)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            log(f"  profile {algo} M={cl.M} load=0.9, {slots} slots: "
-                f"wall/slot={wall / slots * 1e3:.4f} ms "
-                f"device_busy/slot={busy / slots * 1e3:.4f} ms "
-                f"idle_share={1 - busy / wall:.4f} "
-                f"kernels/slot={len(kern) / slots:.1f} "
-                f"route_commit_us/slot={rc / slots:.3f}")
-            for name, us in top:
-                log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
+        by_name: dict = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        rc = sum(us for name, us in by_name.items() if "route_commit" in name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"  profile {algo} {scenario or 'uniform'} M={cl.M} load=0.9, "
+            f"{slots} slots: "
+            f"wall/slot={wall / slots * 1e3:.4f} ms "
+            f"device_busy/slot={busy / slots * 1e3:.4f} ms "
+            f"idle_share={1 - busy / wall:.4f} "
+            f"kernels/slot={len(kern) / slots:.1f} "
+            f"route_commit_us/slot={rc / slots:.3f}")
+        for name, us in top:
+            log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
 
 
 def sweep_route_commit(dev) -> None:
@@ -896,7 +982,8 @@ def sweep_route_commit(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="short first run: fewer timing launches, T/20")
+                    help="short first run: fewer timing launches, T/20 "
+                         "(at least 5 000 slots)")
     ap.add_argument("--profile", action="store_true",
                     help="only build and time: profile where a slot's time "
                          "goes, route_commit at every valid-prefix length, "
@@ -958,10 +1045,11 @@ def main() -> int:
     keep = ("ms", "plain_ms", "bound_ms", "us_per_step")
     for variant in ("full", "pod"):
         name = f"route_commit_{variant}"
-        r = rows[(variant, 500, False)]
-        by_shape = {f"M={M} valid={rows[(variant, M, lp)]['n_valid']}": {
-            k: rows[(variant, M, lp)][k] for k in keep}
-            for M in (500, 5000) for lp in (False, True)}
+        r = rows[(variant, 500, False, "homo")]
+        by_shape = {f"M={M} valid={rows[(variant, M, lp, op)]['n_valid']}"
+                    f"{'' if op == 'homo' else ' inv=[M,3] fleet'}": {
+            k: rows[(variant, M, lp, op)][k] for k in keep + ("bound_by",)}
+            for op in ("homo", "fleet") for M in (500, 5000) for lp in (False, True)}
         if variant == "pod":
             by_shape.update({f"JSQ M={M} B={B} C=3 valid={j['n_valid']}":
                              {k: j[k] for k in keep}

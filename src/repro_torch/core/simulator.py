@@ -47,9 +47,15 @@ fills it from a ``torch.Generator``; a test fills it from the JAX key
 derivation instead and then holds the port's slot step to the reference's,
 bit for bit.
 
-Only the ``uniform`` scenario is ported (unit speeds, stationary traffic,
-uniform placement: the reference's homogeneous fast path).  Telemetry and
-the grid entry points come with later slices.
+Scenarios (``repro_torch.scenarios``): a slot reads its [M, 3] per-class
+speed from ``speed_at``.  A busy server completes ``speed[m, cls]`` work
+units a slot; a tier at speed 0 starts nothing of that class, and a server
+with every tier at 0 schedules nothing; BP's workload and routing divide by
+the slot's own [M, 3] rates, ``+inf`` where a tier is down.  A realization
+with unit speeds and no windows (``uniform``) takes the homogeneous fast
+path instead: unit speeds, no masks, the ``[3]`` rate vector.  Skewed
+placement and the per-task size law enter through the draws.  Telemetry
+and the grid entry points come with later slices.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ import torch
 
 from ..kernels.ref import workload
 from ..kernels.route_commit import route_commit
-from ..scenarios.build import realize
+from ..scenarios.build import (ScenarioData, placement_cdf, realize,
+                               sample_locals_scenario, speed_at)
 from .cluster import (GEOMETRIC, LOCAL, LOGNORMAL, RACK, REMOTE, Cluster,
                       Rates, durations_from_normal, durations_from_uniform,
                       locality_class, safe_inv_rates, sample_locals,
@@ -273,6 +280,9 @@ class SlotDraws(NamedTuple):
     cand_valid: Optional[torch.Tensor] = None  # bool [A, C]
     cand_rnd: Optional[torch.Tensor] = None    # f32 [A, C] tie uniforms
     #                                            (pod, sequential)
+    size_e: Optional[torch.Tensor] = None      # f32 [M] N(0, 1/2) draws of
+    #                                            the size law (``_task_work``;
+    #                                            size_sigma > 0 only)
 
 
 class SQDraws(NamedTuple):
@@ -291,6 +301,7 @@ class SQDraws(NamedTuple):
     #                                       [0, M - R) (pod)
     route: Optional[torch.Tensor] = None  # f32 [A, n_rep] route tie uniforms
     #                                       (sequential)
+    size_e: Optional[torch.Tensor] = None  # f32 [S] size-law draws
 
 
 class FCFSDraws(NamedTuple):
@@ -300,6 +311,7 @@ class FCFSDraws(NamedTuple):
     rank: torch.Tensor         # f32 [M] grab order of the idle servers
     locals_: torch.Tensor      # int32 [G, n_rep] replicas of the grabbed tasks
     dur: torch.Tensor          # int32 [G, 3] duration per class
+    size_e: Optional[torch.Tensor] = None  # f32 [G] size-law draws
 
 
 class TorchDraws:
@@ -313,16 +325,28 @@ class TorchDraws:
     ties, is large) and handed out as views, so a slot costs no generator
     launches of its own.  The full-BP tie permutation is the argsort of
     iid uniforms: a uniform permutation.  Bounded integers are scaled
-    uniforms (``uniform_int``)."""
+    uniforms (``uniform_int``).
+
+    ``scen`` (a ScenarioData on the same device, or None for ``uniform``)
+    sets the placement law of the replica triples, each slot drawing from
+    its own churn epoch's popularity row, and, when its ``size_sigma`` is
+    above 0, adds the size law's draws.  Uniform placement and sigma 0
+    draw exactly what they draw without a scenario."""
 
     _BLOCK_ELEMS = 1 << 22      # elements of a block's largest draw
 
     def __init__(self, gen: torch.Generator, cluster: Cluster, rates: Rates,
                  cfg: SimConfig, pod: Optional[PodSpec], a_max: int,
-                 lam_t: torch.Tensor, family: str = "bp"):
+                 lam_t: torch.Tensor, family: str = "bp",
+                 scen: Optional[ScenarioData] = None):
         self.gen, self.cluster, self.cfg, self.pod = gen, cluster, cfg, pod
         self.a_max, self.lam_t, self.family = a_max, lam_t, family
         self.sequential = cfg.route_mode == "sequential"
+        self.scen = scen
+        self.cdf = None if scen is None else placement_cdf(scen)
+        # read once a run: draw the size law only when it is on
+        self.sized = (scen is not None and scen.size_sigma is not None
+                      and float(scen.size_sigma) > 0.0)
         self.p = rates.as_array(lam_t.device)                     # [3]
         M, dev = cluster.M, lam_t.device
         self.S = min(cfg.s_max, M)
@@ -350,6 +374,17 @@ class TorchDraws:
         raise ValueError(f"unknown service distribution "
                          f"{self.cfg.service_dist!r}")
 
+    def _locals(self, t0: int, n: int, rows: int) -> torch.Tensor:
+        """int32 [n, rows, n_rep] replica triples of slots t0 .. t0 + n - 1
+        under the placement law."""
+        g, c, dev = self.gen, self.cluster, self.lam_t.device
+        if self.cdf is None:
+            return sample_locals(g, c, n * rows, dev).view(n, rows, -1)
+        pe = (0 if self.scen.placement_epoch is None
+              else self.scen.placement_epoch[t0:t0 + n])
+        return sample_locals_scenario(g, c, self.scen, (n, rows), pe=pe,
+                                      cdf=self.cdf)
+
     def _fill(self, t0: int):
         """Draws for slots t0 .. t0 + block - 1, each field [n, ...]."""
         g, c, M, dev = self.gen, self.cluster, self.cluster.M, self.lam_t.device
@@ -357,14 +392,16 @@ class TorchDraws:
         lam = self.lam_t[t0:t0 + self.block]
         n = lam.shape[0]
         raw = torch.poisson(lam, generator=g).to(torch.int32)
+        size = lambda rows: ({"size_e": torch.randn(
+            (n, rows), generator=g, device=dev) * _HALF_SQRT2}
+                             if self.sized else {})
         if self.family == "fcfs":
-            return FCFSDraws(raw, rand(n, M), sample_locals(
-                g, c, n * self.S, dev).view(n, self.S, -1), self._dur(n, self.S))
-        locals_ = sample_locals(g, c, n * self.a_max, dev).view(
-            n, self.a_max, -1)
+            return FCFSDraws(raw, rand(n, M), self._locals(t0, n, self.S),
+                             self._dur(n, self.S), **size(self.S))
+        locals_ = self._locals(t0, n, self.a_max)
         if self.family == "sq":
             S, pod = self.S, self.pod
-            extra = {}
+            extra = size(S)
             if S < M:
                 extra["rows"] = rand(n, M)
             if pod is not None:
@@ -376,7 +413,7 @@ class TorchDraws:
                            rand(n, S), **extra)
         cls = locality_class(c, locals_)
         dur = self._dur(n, M)
-        extra = {}
+        extra = size(M)
         if self.pod is None and self.sequential:
             extra["tie_rnd"] = rand(n, M)
         elif self.pod is None:
@@ -402,10 +439,17 @@ class TorchDraws:
 # ---------------------------------------------------------------------------
 
 
-def _progress_service(busy, rem):
-    """Busy servers complete one work unit this slot (unit speeds: the
-    uniform scenario).  Returns (busy', rem', completed_mask)."""
-    rem = torch.where(busy, rem - 1.0, 0.0)
+def _speed_of_class(speed: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """[M] per-server speed for class ``cls[m]``; speed: [M, 3]."""
+    return torch.gather(speed, 1, cls.to(torch.int64)[:, None])[:, 0]
+
+
+def _progress_service(busy, rem, speed=None, cls=None):
+    """Busy servers complete ``speed[m, cls[m]]`` work units this slot (cls
+    = class of the in-flight task); speed None: unit speeds, the
+    homogeneous fast path.  Returns (busy', rem', completed_mask)."""
+    rem = torch.where(busy, rem - (1.0 if speed is None
+                                   else _speed_of_class(speed, cls)), 0.0)
     completed = busy & (rem <= 0)
     busy = busy & ~completed
     rem = torch.where(busy, rem, 0.0)
@@ -448,11 +492,57 @@ def _acc(sums: RawSums, *, in_half2: bool, N, arr, clipped, comp, starts,
     return RawSums(*new[:7], new[7:10], new[10:13], *new[13:16], final_N=N)
 
 
-def _task_work(dur: torch.Tensor) -> torch.Tensor:
-    """Float32 work units of freshly started tasks.  On the uniform
-    scenario the per-task size multiplier is exp(0) = 1, so the work is
-    the sampled duration itself (the size law comes with scenarios)."""
-    return dur.to(_F)
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add (the
+    product of two float32 values is exact in float64)."""
+    f = lambda x: x.to(torch.float64) if torch.is_tensor(x) else x
+    return (f(a) * f(b) + f(c)).to(_F)
+
+
+_F32 = lambda x: float(np.float32(x))
+_EXP_LOG2E, _EXP_C1, _EXP_C2 = _F32(1.44269504088896341), _F32(0.693359375), \
+    _F32(-2.12194440e-4)
+_EXP_P = tuple(_F32(p) for p in (1.9875691500e-4, 1.3981999507e-3,
+                                 8.3334519073e-3, 4.1665795894e-2,
+                                 1.6666665459e-1, 5.0000001201e-1))
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as XLA's CPU backend evaluates it: the Cephes polynomial
+    with fused multiply-adds (``_fma32``), so that the size multiplier is
+    the reference's to the bit on the CPU and the card alike (torch.exp
+    differs from it in the last bit on many inputs).  Equal to XLA's for
+    |x| < 87, far beyond what a size law reaches."""
+    x = torch.clamp(x, -88.3762626647949, 88.3762626647950)
+    fx = torch.floor(_fma32(x, _EXP_LOG2E, 0.5))
+    r = _fma32(fx, -_EXP_C1, x)
+    r = _fma32(fx, -_EXP_C2, r)
+    y = _fma32(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma32(y, r, p)
+    y = _fma32(y, r * r, r) + 1.0
+    return y * ((fx.to(torch.int32) + 127) << 23).view(_F)
+
+
+_SQRT2 = _F32(math.sqrt(2.0))
+_HALF_SQRT2 = _F32(math.sqrt(0.5))
+
+
+def _task_work(dur: torch.Tensor, scen: Optional[ScenarioData] = None,
+               e: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Float32 work units of freshly started tasks: the sampled duration
+    times the scenario's size multiplier exp(size_mu + size_sigma * z), a
+    mean-1 lognormal, z standard normal.  ``e`` is z / sqrt(2), an
+    N(0, 1/2) draw: the reference draws z = sqrt(2) * erfinv(u), and XLA
+    folds the sqrt(2) into sigma, evaluating exp(mu + (sigma * sqrt(2)) *
+    erfinv(u)); the port computes the same expression on ``e = erfinv(u)``,
+    so a test that passes the reference's erfinv(u) gets its work to the
+    bit.  e None (a size_sigma of 0, where the reference's multiplier is
+    exp(0) == 1): the duration itself, bit for bit."""
+    work = dur.to(_F)
+    if e is None:
+        return work
+    return work * _exp_f32(_fma32(e, scen.size_sigma * _SQRT2, scen.size_mu))
 
 
 def _class_hits(cls: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
@@ -472,19 +562,23 @@ def _bp_workload(Q: torch.Tensor, inv_rates: torch.Tensor) -> torch.Tensor:
     return workload(Q, torch.where(torch.isfinite(inv), inv, 0.0))
 
 
-def _bp_schedule(dur, Q, busy, rem, cls):
-    """Idle servers start their own head-of-class task: local > rack >
-    remote (purely local information, paper §IV-A).  ``dur`` [M, 3] holds
-    each server's duration for each class.  Returns (Q', busy', rem',
-    cls', starts_by_class [3], n_started)."""
-    has = Q > 0
+def _bp_schedule(dur, Q, busy, rem, cls, servable=None, scen=None,
+                 size_e=None):
+    """Idle servers start their own head-of-class *servable* task: local >
+    rack > remote among classes whose tier is up (purely local
+    information, paper §IV-A).  ``dur`` [M, 3] holds each server's duration
+    for each class; ``servable`` bool [M, 3] (speed > 0), None: all
+    servable (the homogeneous fast path); ``scen`` and ``size_e`` the size
+    law (``_task_work``).  Returns (Q', busy', rem', cls',
+    starts_by_class [3], n_started)."""
+    has = Q > 0 if servable is None else (Q > 0) & servable
     pick = torch.argmax(has.to(torch.uint8), dim=1)         # first nonempty
     start = ~busy & has.any(dim=1)
     taken = _class_hits(pick, start)
     Q = Q - taken.to(torch.int32)
     d = torch.gather(dur, 1, pick[:, None])[:, 0]
     busy = busy | start
-    rem = torch.where(start, _task_work(d), rem)
+    rem = torch.where(start, _task_work(d, scen, size_e), rem)
     cls = torch.where(start, pick.to(torch.int32), cls)
     return Q, busy, rem, cls, taken.sum(dim=0).to(_F), start.sum().to(_F)
 
@@ -534,17 +628,25 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
              cluster: Cluster, cfg: SimConfig, inv_rate_m: torch.Tensor,
              pod: Optional[PodSpec], a_max: int, measure: bool,
              in_half2: bool, class_tiebreak: bool = True,
-             cand_cls: Optional[torch.Tensor] = None):
-    """One slot of the BP family on the homogeneous (uniform) path:
-    completions -> scheduling -> arrivals and routing -> accumulators.
-    ``cand_cls`` ([A, C] int32, pod only) may be passed precomputed."""
+             cand_cls: Optional[torch.Tensor] = None,
+             speed: Optional[torch.Tensor] = None,
+             scen: Optional[ScenarioData] = None):
+    """One slot of the BP family: completions -> scheduling -> arrivals and
+    routing -> accumulators.  ``speed`` [M, 3] is the slot's per-class
+    speed, with ``inv_rate_m`` the slot's [M, 3] inverse rates (``+inf``
+    where a tier is down); speed None is the homogeneous path (unit
+    speeds, the [3] vector).  ``scen`` carries the size law.  ``cand_cls``
+    ([A, C] int32, pod only) may be passed precomputed."""
     if pod is not None and cand_cls is None:
         cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
                                          state.Q.device).expand(
             a_max, -1).contiguous()
-    busy, rem, completed = _progress_service(state.busy, state.rem)
+    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
+                                             state.cls)
     Q, busy, rem, cls_serv, starts, n_started = _bp_schedule(
-        draws.dur, state.Q, busy, rem, state.cls)
+        draws.dur, state.Q, busy, rem, state.cls,
+        servable=None if speed is None else speed > 0, scen=scen,
+        size_e=draws.size_e)
     mask, clipped = _arrival_batch(draws, a_max)
     Q, sel, sel_cls = _bp_route_batch(
         draws, Q, draws.cls, mask, inv_rate_m, pod,
@@ -572,8 +674,9 @@ class StepConsts(NamedTuple):
 
     rack_of: torch.Tensor      # int64 [M] Cluster.rack_of
     rates: torch.Tensor        # f32 [3] (alpha, beta, gamma)
-    lane_rate: Optional[torch.Tensor]  # f32 [1 + d'] rate of each JSQ-MW-Pod
-    #                                    probe: own, then rack, then remote
+    lane_cls: Optional[torch.Tensor]   # int64 [1 + d'] class of each
+    #                                    JSQ-MW-Pod probe: own, rack, remote
+    lane_rate: Optional[torch.Tensor]  # f32 [1 + d'] its rate
     unit_inv: torch.Tensor     # f32 [3] ones: batched JSQ's kernel operand,
     zero_cls: torch.Tensor     # int32 [a_max, n_rep] with class 0
     one_valid: torch.Tensor    # bool [a_max, n_rep] candidates all valid
@@ -583,10 +686,11 @@ def step_consts(cluster: Cluster, rates: Rates, pod: Optional[PodSpec],
                 a_max: int, device) -> StepConsts:
     """The ``StepConsts`` of one run."""
     r = rates.as_array(device)
-    lane = None if pod is None else r[pod_candidate_classes(1, pod, device).long()]
+    lane = None if pod is None else pod_candidate_classes(1, pod, device).long()
     shape = (a_max, cluster.n_replicas)
     return StepConsts(cluster.rack_of.to(device=device, dtype=torch.int64), r,
-                      lane, torch.ones(3, dtype=_F, device=device),
+                      lane, None if pod is None else r[lane],
+                      torch.ones(3, dtype=_F, device=device),
                       torch.zeros(shape, dtype=torch.int32, device=device),
                       torch.ones(shape, dtype=torch.bool, device=device))
 
@@ -612,19 +716,25 @@ def _grant_conflicts(tgt, prio, has, Q, rnd):
 
 def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
                  consts: StepConsts, S: int, variant: str,
-                 pod: Optional[PodSpec]):
-    """Batched scheduling of the SQ family on the homogeneous path.
+                 pod: Optional[PodSpec], speed: Optional[torch.Tensor] = None,
+                 scen: Optional[ScenarioData] = None):
+    """Batched scheduling of the SQ family.
 
     variant "maxweight": argmax of rate-weighted queue lengths over all M
-    (``pod`` None) or over own + d' sampled queues; "priority": own >
-    longest in rack > longest anywhere.  S == M takes every server as a
-    row; S < M the first S eligible servers in the order of ``draws.rows``.
-    Returns (Q', busy', rem', cls', starts [3], n_decisions, rows, tgt,
-    granted)."""
+    (``pod`` None) or over own + d' sampled queues, each weighted by the
+    serving server's own per-class speed; "priority": own > longest in
+    rack > longest anywhere.  S == M takes every server as a row; S < M the
+    first S eligible servers in the order of ``draws.rows``.  ``speed``
+    [M, 3]: a (server, queue) pair whose class tier is down is ineligible
+    and a server with every tier down schedules nothing; None is the
+    homogeneous path.  ``scen`` carries the size law.  Returns (Q', busy',
+    rem', cls', starts [3], n_decisions, rows, tgt, granted)."""
     M = cluster.M
     idle = ~busy
     anyq = (Q > 0).any()
     eligible = idle & ((Q > 0) | anyq)
+    if speed is not None:
+        eligible = eligible & (speed > 0).any(dim=1)
     if S == M:
         # every server is its own scheduling attempt (row order is
         # immaterial: grants tie-break on explicit uniforms)
@@ -642,7 +752,12 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
     if variant == "maxweight" and pod is None:
         rel = _relation_rows(consts.rack_of, rows)              # [S, M]
         w = qf[None, :] * consts.rates[rel]
-        cand = (Q > 0)[None, :].expand(S, M)
+        if speed is None:
+            cand = (Q > 0)[None, :].expand(S, M)
+        else:
+            sp = speed[rows].gather(1, rel)     # the serving server's speed
+            w = w * sp
+            cand = (Q > 0)[None, :] & (sp > 0)
         tgt = lex_argmax(w, draws.tie, mask=cand).long()
         val = w.gather(1, tgt[:, None])[:, 0]
         has = cand.any(dim=1) & act
@@ -656,6 +771,10 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         qc = Q[cand_idx]
         w = qc.to(_F) * consts.lane_rate
         cand = qc > 0
+        if speed is not None:
+            sp = speed[rows][:, consts.lane_cls]
+            w = w * sp
+            cand = cand & (sp > 0)
         c = lex_argmax(w, draws.tie, mask=cand).long()[:, None]
         tgt = cand_idx.gather(1, c)[:, 0]
         val = w.gather(1, c)[:, 0]
@@ -665,6 +784,9 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         rel = _relation_rows(consts.rack_of, rows)              # [S, M]
         nonempty = (Q > 0)[None, :]
         own_has = Q[rows] > 0
+        if speed is not None:
+            nonempty = nonempty & (speed[rows].gather(1, rel) > 0)
+            own_has = own_has & (speed[rows, LOCAL] > 0)
         rack_set = (rel == RACK) & nonempty
         glob_set = (rel == REMOTE) & nonempty
         wq = qf[None, :].expand(S, M)
@@ -687,7 +809,8 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
     start_cls = torch.where(rows == tgt, LOCAL,
                             torch.where(rack_of[rows] == rack_of[tgt],
                                         RACK, REMOTE))
-    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0])
+    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0], scen,
+                      draws.size_e)
     start_cls32 = start_cls.to(torch.int32)
     if S == M:
         # rows == arange(M): the per-row scatters are identity placements
@@ -719,16 +842,20 @@ def _jsq_route_sequential(draws: SQDraws, Q, mask):
 def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
              cluster: Cluster, cfg: SimConfig, consts: StepConsts,
              variant: str, pod: Optional[PodSpec], a_max: int, measure: bool,
-             in_half2: bool):
-    """One slot of the SQ family on the homogeneous (uniform) path:
-    completions -> scheduling -> arrivals and routing -> accumulators.
-    Batched routing is one pod ``route_commit`` launch with unit rates:
-    Q embedded in column 0 of an [M, 3] queue, the replica triples as
+             in_half2: bool, speed: Optional[torch.Tensor] = None,
+             scen: Optional[ScenarioData] = None):
+    """One slot of the SQ family: completions -> scheduling -> arrivals and
+    routing -> accumulators (``speed`` and ``scen`` as in ``_bp_step``).
+    Batched routing is one pod ``route_commit`` launch with unit rates on
+    every fleet, as in the reference (JSQ routing is workload-free): Q
+    embedded in column 0 of an [M, 3] queue, the replica triples as
     candidates of class 0, all valid (ties by replica slot)."""
-    busy, rem, completed = _progress_service(state.busy, state.rem)
+    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
+                                             state.cls)
     Q, busy, rem, cls_serv, starts, n_sched, *_ = _sq_schedule(
         draws, cluster, state.Q, busy, rem, state.cls, consts=consts,
-        S=min(cfg.s_max, cluster.M), variant=variant, pod=pod)
+        S=min(cfg.s_max, cluster.M), variant=variant, pod=pod, speed=speed,
+        scen=scen)
     mask, clipped = _arrival_batch(draws, a_max)
     if cfg.route_mode == "sequential":
         Q = _jsq_route_sequential(draws, Q, mask)
@@ -756,14 +883,19 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
 
 def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
                cluster: Cluster, cfg: SimConfig, consts: StepConsts,
-               a_max: int, measure: bool, in_half2: bool):
-    """One slot of FCFS on the homogeneous path: up to G = min(s_max, M)
-    idle servers, in the random order of ``draws.rank``, each grab the
-    head task; the grabbed task's replicas are sampled at dequeue (iid of
-    everything else, so the law is the same).  Launches no kernel."""
+               a_max: int, measure: bool, in_half2: bool,
+               speed: Optional[torch.Tensor] = None,
+               scen: Optional[ScenarioData] = None):
+    """One slot of FCFS: up to G = min(s_max, M) idle servers, in the
+    random order of ``draws.rank``, each grab the head task; the grabbed
+    task's replicas are sampled at dequeue (iid of everything else, so the
+    law is the same).  With ``speed``, a server with every tier down is not
+    idle, and one whose tier for the task's class is down leaves it queued.
+    Launches no kernel."""
     G = min(cfg.s_max, cluster.M)
-    busy, rem, completed = _progress_service(state.busy, state.rem)
-    idle = ~busy
+    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
+                                             state.cls)
+    idle = ~busy if speed is None else ~busy & (speed > 0).any(dim=1)
     r = torch.where(idle, draws.rank, _INF)
     rows = torch.argsort(r, stable=True)[:G]
     locals_g = draws.locals_.to(torch.int64)                  # [G, n_rep]
@@ -772,7 +904,10 @@ def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
     in_rack = (rack_of[locals_g] == rack_of[rows][:, None]).any(dim=1)
     start_cls = torch.where(is_local, LOCAL, torch.where(in_rack, RACK, REMOTE))
     grant = idle[rows] & (torch.arange(G, device=rows.device) < state.C)
-    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0])
+    if speed is not None:
+        grant = grant & (speed[rows].gather(1, start_cls[:, None])[:, 0] > 0)
+    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0], scen,
+                      draws.size_e)
     C = state.C - grant.sum().to(torch.int32)
     busy = busy.index_copy(0, rows, busy[rows] | grant)
     rem = rem.index_copy(0, rows, torch.where(grant, work, rem[rows]))
@@ -836,13 +971,28 @@ def _pod_for(algo: str, pod: Optional[PodSpec]) -> Optional[PodSpec]:
 DrawSource = Callable[[int], NamedTuple]     # slot index -> that slot's draws
 
 
+def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
+    """Does this realization leave every server at the base rates for the
+    whole run?  True only without windows and with unit base speeds: then
+    the slot loop takes the homogeneous path (unit speeds, no masks, the
+    [3] inverse-rate vector on ``route_commit``), with the same results.
+    Padded realizations always carry window rows, so this is False for
+    them, as in the reference.  Reads base_speed on the host once."""
+    return scen is None or (scen.win_start.shape[0] == 0
+                            and bool((scen.base_speed == 1.0).all()))
+
+
 def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
          rates: Rates, cfg: SimConfig, pod: Optional[PodSpec],
-         a_max: int) -> RawSums:
-    """The T-slot loop; returns the raw accumulators."""
+         a_max: int, scen: Optional[ScenarioData] = None) -> RawSums:
+    """The T-slot loop; returns the raw accumulators.  On a heterogeneous
+    realization each slot reads its speed from ``speed_at(scen, t)`` (and
+    the BP family its [M, 3] inverse rates), all on the device."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
-    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max)
+    homo = _rates_homogeneous(scen)
+    rate_vec = rates.as_array(dev)
+    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=scen)
     if family == "bp":
         cand_cls = None
         if pod is not None:
@@ -850,7 +1000,7 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
                                              dev).expand(a_max, -1).contiguous()
         state = BPState.zero(cluster.M, dev)
         step = functools.partial(
-            _bp_step, inv_rate_m=safe_inv_rates(rates.as_array(dev)), pod=pod,
+            _bp_step, pod=pod,
             class_tiebreak=(algo != "balanced_pandas_randomtie"),
             cand_cls=cand_cls, **kw)
     else:
@@ -865,9 +1015,15 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
             state = FCFSState.zero(cluster.M, dev)
             step = functools.partial(_fcfs_step, consts=consts, **kw)
     sums = RawSums.zero(dev)
+    slot = {"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp" else {}
     for t in range(cfg.T):
+        if not homo:
+            speed = speed_at(scen, t)
+            slot["speed"] = speed
+            if family == "bp":      # inv_rate_matrix(rates, speed)
+                slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec[None, :])
         state, sums = step(state, sums, draw(t), measure=t >= cfg.warmup,
-                           in_half2=t >= half2_from)
+                           in_half2=t >= half2_from, **slot)
     return sums
 
 
@@ -878,13 +1034,16 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
              draws: Optional[DrawSource] = None) -> SimResult:
     """Run one simulation and return derived metrics.
 
-    load: fraction of the capacity edge (lambda = load * M * alpha on the
-    uniform scenario).  key: an int seed or a ``torch.Generator`` on
-    ``device``.  pad: the reference's canonical sweep padding; only None is
-    ported.  device: None runs on the CUDA card (and raises without one);
-    pass "cpu" to run on the CPU.  draws: a draw source replacing the
-    default ``TorchDraws``: a callable from slot index to the family's
-    draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``)."""
+    load: fraction of the scenario's capacity edge (lambda = load * M *
+    alpha on the uniform scenario).  key: an int seed or a
+    ``torch.Generator`` on ``device``.  scenario: a registered name, a
+    ``scenarios.Scenario`` or None (``uniform``).  pad / a_max: the
+    canonical sweep controls (``scenarios.canonical_pad`` /
+    ``canonical_a_max``); a_max None sizes the arrival buffer from the
+    scenario's peak intensity.  device: None runs on the CUDA card (and
+    raises without one); pass "cpu" to run on the CPU.  draws: a draw
+    source replacing the default ``TorchDraws``: a callable from slot index
+    to the family's draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``)."""
     family = _family(algo)
     dev = resolve_device(device)
     scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
@@ -896,9 +1055,10 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(key))
         lam_t = torch.tensor(lam, dtype=_F, device=dev) * scen.lam_shape
-        draws = TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t, family)
+        draws = TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t, family,
+                           scen)
     sums = _run(draws, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
-                pod=pod, a_max=a_max)
+                pod=pod, a_max=a_max, scen=scen)
     return summarize(sums, algo, cluster, rates, pod)
 
 

@@ -21,8 +21,9 @@ a launch needs no encoding pass.
 Dispatch rule (``use_kernel``): a tensor on the CPU goes to the plain
 PyTorch version, a tensor on a CUDA device goes to the hand-written CUDA
 kernel.  There is no fallback from one to the other.  ``LAUNCHES`` counts
-each kernel's launches (one key per kernel); the CPU path and the plain
-versions never touch it.
+each kernel's launches (one key per kernel), ``MATRIX_LAUNCHES`` those of
+``route_commit`` at the ``[M, 3]`` operand; the CPU path and the plain
+versions never touch them.
 """
 from __future__ import annotations
 
@@ -35,12 +36,15 @@ FLAG_BASE = 4
 
 LAUNCHES = {"route_commit_full": 0, "route_commit_pod": 0,
             "weighted_argmin": 0, "pod_route": 0, "queue_update": 0}
+# of route_commit's launches, those at the per-server [M, 3] operand
+MATRIX_LAUNCHES = {"route_commit_full": 0, "route_commit_pod": 0}
 
 
 def reset_launch_counts() -> None:
     """Zero every launch counter."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MATRIX_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def use_kernel(t: torch.Tensor, kernel: str) -> bool:

@@ -14,8 +14,9 @@ Two variants share the wrapper:
   pod   (``cand_idx``/``cand_cls``/``cand_valid``: [B, C]) — power-of-d
         argmin over an explicit candidate list.
 
-``invrates.LAUNCHES`` counts kernel launches per variant; the CPU path
-and the plain version never touch it.
+``invrates.LAUNCHES`` counts kernel launches per variant (and
+``MATRIX_LAUNCHES`` those at the [M, 3] operand); the CPU path and the
+plain version never touch them.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .invrates import LAUNCHES, check, check_inv_rates, use_kernel
+from .invrates import (LAUNCHES, MATRIX_LAUNCHES, check, check_inv_rates,
+                       use_kernel)
 from .ref import route_commit_ref
 
 THREADS_FULL = 1024     # full: at most this many, one owner thread a server
@@ -131,3 +133,4 @@ def launch(Q, valid, inv_rates, outs, *, cls=None, prio=None,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    MATRIX_LAUNCHES[name] += stride == 3

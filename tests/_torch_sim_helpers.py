@@ -5,7 +5,8 @@ one.  Each side runs in its own file, so that no file runs long.
 
 The random streams differ (threefry vs Philox), so single runs cannot be
 compared.  Each side runs six seeds at M=20, K=4, load 0.6 (FCFS 0.15: it
-serves most tasks remotely and is unstable above about 0.2), T=6000; mean
+serves most tasks remotely and is unstable above about 0.2), T=6000, on
+``uniform`` or on the scenario a file names; mean
 completion slots and the three locality fractions must agree within a
 confidence interval built from the seed spread:
 |mean_a - mean_b| < 3 * sqrt(se_a^2 + se_b^2), se = sample std / sqrt(n).
@@ -43,19 +44,19 @@ def metrics(res) -> np.ndarray:
                      for r in res])
 
 
-def port(algo, mode, seeds, load=LOAD):
+def port(algo, mode, seeds, load=LOAD, scenario=None):
     cfg = tsim.SimConfig(T=T, warmup=WARMUP, route_mode=mode)
     with one_thread():
         return metrics([tsim.simulate(algo, tcl.Cluster(M=M, K=K),
                                       tcl.Rates(*RATES), load, 1000 + s, cfg,
-                                      device="cpu")
+                                      scenario=scenario, device="cpu")
                         for s in seeds])
 
 
-def jax_batched(algo, load=LOAD):
+def jax_batched(algo, load=LOAD, scenario=None):
     cfg = jsim.SimConfig(T=T, warmup=WARMUP, route_mode="batched")
     res = jsim.simulate_grid(algo, jcl.Cluster(M=M, K=K), jcl.Rates(*RATES),
-                             [load], SEEDS, cfg)
+                             [load], SEEDS, cfg, scenario=scenario)
     return np.concatenate([np.asarray(res.mean_completion_slots)[:, :1],
                            np.asarray(res.locality_fractions)[:, 0, :]], axis=1)
 

@@ -749,3 +749,87 @@ def test_simulate_cuda_path_equals_cpu_path_on_shared_draws(dev, algo, s_max, mo
     assert sum(tk.LAUNCHES.values()) == launches
     for name, a, b in zip(out[0]._fields, *out):
         assert torch.equal(a, b.cpu()) or (a.isnan().all() and b.isnan().all()), name
+
+
+SCENARIO_CASES = [("balanced_pandas", "batched", "rack_outage"),
+                  ("balanced_pandas", "sequential", "slow_rack"),
+                  ("balanced_pandas_pod", "batched", "slow_rack+sized"),
+                  ("balanced_pandas_pod", "batched", "zipf_hotspot"),
+                  ("jsq_maxweight_pod", "batched", "rack_outage"),
+                  ("jsq_priority", "batched", "network_degraded"),
+                  ("fcfs", "batched", "rack_outage")]
+
+
+def _scenario(name):
+    from repro_torch.scenarios import Scenario, SizeSpec, compose
+    if name == "slow_rack+sized":
+        return compose("slow_rack", Scenario("sized", sizes=SizeSpec(sigma=0.8)))
+    return name
+
+
+@pytest.mark.parametrize("algo,mode,scenario", SCENARIO_CASES,
+                         ids=[f"{a}-{m}-{s}" for a, m, s in SCENARIO_CASES])
+def test_simulate_cuda_path_equals_cpu_path_on_a_heterogeneous_scenario(
+        dev, algo, mode, scenario):
+    """A heterogeneous scenario for each family, fed the same draws (made
+    on the CPU under the scenario's placement and size laws): the CUDA path
+    equals the CPU path bit for bit; batched BP launches route_commit once
+    a slot at the [M, 3] operand on a heterogeneous fleet and at the [3]
+    operand on zipf_hotspot; batched JSQ routing keeps the [3] operand."""
+    from repro_torch.scenarios import realize
+
+    cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
+    cfg = SimConfig(T=400, warmup=100, route_mode=mode)
+    spec = _scenario(scenario)
+    scen, lam_cap = realize(spec, cl, rates, cfg.T, device="cpu")
+    pod = _pod_for(algo, None)
+    a_max = cfg.resolve_a_max(0.9 * lam_cap, float(scen.lam_shape.max()))
+    lam_t = torch.tensor(0.9 * lam_cap, dtype=torch.float32) * scen.lam_shape
+    out = []
+    for run_dev in ("cpu", dev):
+        src = TorchDraws(torch.Generator().manual_seed(5), cl, rates, cfg, pod,
+                         a_max, lam_t, _family(algo), scen)
+
+        def draw(t, src=src, run_dev=run_dev):
+            d = src(t)
+            return type(d)(*(None if x is None else x.to(run_dev) for x in d))
+        tk.reset_launch_counts()
+        out.append(simulate(algo, cl, rates, 0.9, 0, cfg, scenario=spec, a_max=a_max,
+                            device=run_dev, draws=draw))
+    launches = 0 if algo == "fcfs" or mode == "sequential" else cfg.T
+    matrix = launches if algo.startswith("balanced_pandas") and \
+        scenario != "zipf_hotspot" else 0
+    assert sum(tk.LAUNCHES.values()) == launches
+    assert sum(tk.MATRIX_LAUNCHES.values()) == matrix
+    for name, a, b in zip(out[0]._fields, *out):
+        assert torch.equal(a, b.cpu()) or (a.isnan().all() and b.isnan().all()), name
+
+
+def test_scenario_arithmetic_on_the_card_equals_the_cpu(dev):
+    """speed_at at every slot of every registry scenario, the inverse-rate
+    matrix, the size multiplier's exp and the Zipf draw's inversion: the
+    card computes the CPU's values to the bit."""
+    from repro_torch.core.cluster import safe_inv_rates
+    from repro_torch.core.simulator import _exp_f32, _fma32
+    from repro_torch.scenarios import realize, scenario_names, speed_at
+    from repro_torch.scenarios.build import placement_cdf
+
+    cl, rates = Cluster(M=40, K=4), Rates(0.1, 0.05, 0.02)
+    r = rates.as_array()
+    for name in scenario_names():
+        cpu, _ = realize(name, cl, rates, 200, device="cpu")
+        gpu, _ = realize(name, cl, rates, 200, device=dev)
+        for t in range(200):
+            a, b = speed_at(cpu, t), speed_at(gpu, t)
+            assert torch.equal(a, b.cpu()), (name, t)
+            assert torch.equal(safe_inv_rates(a * r[None, :]),
+                               safe_inv_rates(b * r.to(dev)[None, :]).cpu()), (name, t)
+        if cpu.chunk_locals is not None:
+            assert torch.equal(placement_cdf(cpu), placement_cdf(gpu).cpu()), name
+    z = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0)) * 0.7
+    for sigma in (0.3, 0.8, 2.0):
+        s = torch.tensor(sigma, dtype=torch.float32)
+        mu = torch.tensor(-0.5 * sigma * sigma, dtype=torch.float32)
+        a = _exp_f32(_fma32(z, s, mu))
+        b = _exp_f32(_fma32(z.to(dev), s.to(dev), mu.to(dev)))
+        assert torch.equal(a, b.cpu()), sigma

@@ -170,20 +170,23 @@ def test_summarize_matches_jax_on_the_same_sums(algo):
 
 
 def test_realize_uniform_matches_jax_and_rejects_other_scenarios():
+    """The uniform realization equals the reference's; the trace-backed
+    scenario, the one the port does not realize yet, is refused (every
+    other registry scenario: tests/test_torch_scenarios.py)."""
     jscen, jcap = jrealize(get_scenario(None), CL_J, R_J, 100)
-    tscen, tcap = trealize(None, CL_T, R_T, 100)
+    tscen, tcap = trealize(None, CL_T, R_T, 100, device="cpu")
     assert tcap == jcap
     np.testing.assert_array_equal(tscen.lam_shape.numpy(), np.asarray(jscen.lam_shape))
     np.testing.assert_array_equal(tscen.base_speed.numpy(), np.asarray(jscen.base_speed))
-    with pytest.raises(NotImplementedError, match="A, item 3"):
-        trealize("slow_rack", CL_T, R_T, 100)
+    with pytest.raises(NotImplementedError, match="A, item 6"):
+        trealize("production_day", CL_T, R_T, 100, device="cpu")
 
 
 def test_entry_point_refuses_what_is_not_ported_and_needs_a_device_choice():
     cfg = tsim.SimConfig(T=10, warmup=2, route_mode="batched")
-    with pytest.raises(NotImplementedError, match="A, item 3"):
-        tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg, pad="x",
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A, item 6"):
+        tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg,
+                      scenario="production_day", device="cpu")
     with pytest.raises(ValueError):
         tsim.simulate("nope", CL_T, R_T, 0.5, 0, cfg, device="cpu")
     if not torch.cuda.is_available():
