@@ -5,7 +5,8 @@
                                      # T/20 (at least 5 000 slots)
     python3 chip_smoke.py --profile  # only timings: the slot profile
                                      # (BP, BP-Pod, JSQ-MaxWeight-Pod, on
-                                     # uniform and on rack_outage),
+                                     # uniform and on rack_outage; BP-Pod
+                                     # grids of 1, 32 and 132 cells),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -33,7 +34,10 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      (C=3 replica triples, class 0, all valid, unit rates, slot-order ties),
      and both variants are timed at the [M, 3] operand that BP hands them on
      a heterogeneous fleet (a drained rack at +inf, a slow rack, a degraded
-     remote tier) beside the [3] operand of the uniform scenario.
+     remote tier) beside the [3] operand of the uniform scenario.  Both
+     variants also with a leading cell axis (one CTA a cell) at 1, 3, 132
+     and 133 cells, with shared and per-cell rates, and timed at 1, 32, 132
+     and 264 cells (``by_cells`` in the kernels line).
   3. the simulator on the card: the port's own CPU path and its CUDA path,
      fed the same draws, must give bit-identical sums at a small size, for
      every family (and JSQ-MaxWeight-Pod with s_max < M), on `uniform` and
@@ -45,7 +49,11 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      M=100 (zipf_hotspot, hetero_storm).  The launch counters are zeroed
      just before each run and read just after: route_commit must launch
      once per slot (FCFS: never), at the [M, 3] operand exactly when BP
-     runs on a heterogeneous fleet.
+     runs on a heterogeneous fleet.  Then the grid entry points: the corner
+     cells of simulate_grid (every algorithm) and of simulate_sweep (BP,
+     BP-Pod) equal looped simulate runs to the bit, and full-width grids
+     (32 cells of loads x seeds; sweeps of 132 and 24 cells) launch
+     route_commit once a slot for all their cells.
   4. complexity (paper §IV-C), on the port's public functions: probes per
      decision; microseconds per routing decision of weighted_argmin (O(M))
      and pod_route (O(d)) as M grows; the device time of the tick's
@@ -405,6 +413,131 @@ def time_route_commit(x: dict, variant: str, quick: bool, label: str) -> dict:
                 n_valid=n_valid, us_per_step=k_ms * 1e3 / n_valid)
 
 
+GRID_CELLS = (1, 3, 132, 133)      # cells a batched launch is checked at
+TIMED_CELLS = (1, 32, 132, 264)    # and timed at (one wave of 132 CTAs, two)
+INV_MODES = ("[3]", "[M,3]", "[N,M,3]")
+
+
+def batched_inputs(M: int, B: int, C: int, N: int, inv: str, lam: float,
+                   seed: int, dev, valid=None) -> dict:
+    """Tie-forcing inputs of N cells for one batched launch: each cell its
+    own queues (few lengths), classes 0..3 (every third cell with an
+    all-class-3 row), prio, candidates and ``valid`` pattern (cell n takes
+    pattern n mod 6 of ``valid_patterns``, so one launch holds every
+    pattern and its cells' chains stop at different arrivals), unless
+    ``valid`` gives one [B] mask for all.  ``inv``: "[3]" (the lattice
+    vector), "[M,3]" (one pooled matrix with dead servers and columns, read
+    by every cell at a cell stride of 0, as simulate_grid on a
+    heterogeneous scenario) or "[N,M,3]" (one a cell, as simulate_sweep).
+    The candidate classes are one [B, C] block all cells share, as on
+    BP-Pod's path."""
+    rng = np.random.default_rng(seed)
+
+    def pooled(lead):
+        pool = np.exp(rng.uniform(np.log(1e-2), np.log(1e2), (4, 3)))
+        r = pool[rng.integers(4, size=lead + (M,))].astype(np.float32)
+        r[rng.random(lead + (M,)) < 0.125] = np.inf          # dead servers
+        at = np.nonzero(rng.random(lead + (M,)) < 0.2)         # a dead column
+        r[at + (rng.integers(3, size=len(at[0])),)] = np.inf
+        return r
+    rates = {"[3]": np.array([100.0, 200.0, 500.0], np.float32),
+             "[M,3]": pooled(()), "[N,M,3]": pooled((N,))}[inv]
+    if valid is None:
+        valid = np.stack([list(valid_patterns(B, lam, seed + n).values())[n % 6]
+                          for n in range(N)])
+    else:
+        valid = np.broadcast_to(valid, (N, B))
+    cls = rng.integers(0, 4, (N, B, M)).astype(np.int32)
+    cls[::3, B // 2] = 3
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return dict(
+        Q=t(rng.integers(0, 4, (N, M, 3)).astype(np.int32)), valid=t(valid),
+        inv=t(rates), cls=t(cls),
+        prio=t(np.argsort(rng.random((N, M)), axis=1).astype(np.int32)),
+        cand_idx=t(rng.integers(0, M, (N, B, C)).astype(np.int32)),
+        cand_cls=t(np.tile(np.array([0] * 3 + [1] * 2 + [2] * (C - 5), np.int32),
+                           (B, 1))),
+        cand_valid=t(rng.random((N, B, C)) < 0.9))
+
+
+def batched_bound(x: dict, variant: str):
+    """``bound`` of a batched launch: every input read once (a shared one
+    once for all cells), every cell's outputs written once, every cell's
+    multiply-adds."""
+    ins = [x["Q"], x["valid"], x["inv"]] + list(variant_args(x, variant).values())
+    N, M, _ = x["Q"].shape
+    B = x["valid"].shape[1]
+    cand = M if variant == "full" else x["cand_idx"].shape[-1]
+    return bound_ms(nbytes(*ins) + N * (M * 3 * 4 + M * 4 + 3 * B * 4),
+                    N * (5 * M + 2 * B * cand))
+
+
+def check_batched_route_commit(dev, quick: bool):
+    """Both variants with a leading cell axis, one CTA a cell, against the
+    plain version (a loop over the cells) to the bit, at N = 1, 3, 132 and
+    133 cells (a full wave of the card's 132 SMs and one cell past it) at
+    the main path's shapes, M=500 and M=5000, with the [3], a shared [M, 3]
+    and a per-cell [N, M, 3] rate operand; the full variant also with prio
+    absent at N = 3.  Then timed at N = 1, 32, 132 and 264 at M=500 B=22
+    (every cell's 3B/4 prefix), at the [3] and the per-cell operand.
+    Returns ({variant: {"N=.. inv=..": row}}, largest float difference)."""
+    from repro_torch.kernels import route_commit, route_commit_ref
+    from repro_torch.kernels.route_commit import launch
+
+    err = 0.0
+    t0 = time.perf_counter()
+    for M, B, C, lam in ((500, 22, 11, 4.5), (5000, 90, 11, 45.0)):
+        for variant in ("full", "pod"):
+            for inv in INV_MODES:
+                for N in GRID_CELLS:
+                    x = batched_inputs(M, B, C, N, inv, lam, M + N, dev)
+                    kws = [variant_args(x, variant)]
+                    if variant == "full" and N == 3:
+                        kws.append(dict(cls=x["cls"]))
+                    for kw in kws:
+                        got = route_commit(x["Q"], x["valid"], x["inv"], **kw)
+                        torch.cuda.synchronize()
+                        want = route_commit_ref(x["Q"], x["valid"], x["inv"], **kw)
+                        for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"),
+                                              got, want):
+                            if not torch.equal(a, b):
+                                fail(f"route_commit_{variant} M={M} B={B} N={N} "
+                                     f"inv={inv} prio={'prio' in kw}: {name} "
+                                     f"differs from the plain version")
+                            if a.is_floating_point() and a.numel():
+                                err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+            log(f"  route_commit_{variant:4s} M={M:5d} B={B:3d} cells "
+                f"{', '.join(map(str, GRID_CELLS))} x inv {', '.join(INV_MODES)}: "
+                f"equal to the plain version (every valid pattern in each launch"
+                f"{', prio given and absent' if variant == 'full' else ''})")
+    log(f"  batched checks took {time.perf_counter() - t0:.1f} s")
+    rows = {"full": {}, "pod": {}}
+    M, B, C = 500, 22, 11
+    iters = 200 if quick else 500
+    for inv in ("[3]", "[N,M,3]"):
+        for N in TIMED_CELLS:
+            x = batched_inputs(M, B, C, N, inv, 4.5, N, dev,
+                               valid=np.arange(B) < (3 * B) // 4)
+            for variant in ("full", "pod"):
+                kw = variant_args(x, variant)
+                outs = tuple(torch.empty_like(o)
+                             for o in route_commit(x["Q"], x["valid"], x["inv"], **kw))
+                k_ms = device_time_ms(lambda: launch(x["Q"], x["valid"], x["inv"],
+                                                     outs, **kw), iters)
+                p_ms = cuda_time_ms(lambda: route_commit_ref(x["Q"], x["valid"],
+                                                             x["inv"], **kw),
+                                    1 if N >= 132 else 2 if N > 1 else 20,
+                                    warmup=0 if N >= 132 else 1)
+                b_ms, b_by = batched_bound(x, variant)
+                log(f"  route_commit_{variant} N={N} M={M} B={B}"
+                    f"{'' if variant == 'full' else f' C={C}'} valid={(3 * B) // 4} "
+                    f"inv={inv}: kernel {k_ms:.6f} ms ({k_ms * 1e3 / N:.4f} us a cell)"
+                    f"  plain {p_ms:.6f} ms  bound {b_ms:.8f} ms ({b_by})")
+                rows[variant][f"N={N} inv={inv}"] = dict(
+                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return rows, err
+
+
 def jsq_inputs(M: int, B: int, seed: int, dev, valid) -> dict:
     """Batched JSQ routing's route_commit operand (the simulator's
     ``_sq_step``): Q nonzero in column 0 only, with three lengths, so that
@@ -744,6 +877,158 @@ def run_simulations(dev, quick: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, the grid: simulate_grid and simulate_sweep
+# ---------------------------------------------------------------------------
+
+
+PAPER_LOADS = (0.3, 0.5, 0.6, 0.7, 0.8, 0.85, 0.9, 0.95)   # benchmarks/common.py PAPER
+SWEEP_LOADS = (0.45, 0.7, 0.9)
+ZIPF_SCENARIOS = ("zipf_hotspot", "adversarial_placement", "hetero_storm",
+                  "cascade_flash")
+
+
+def same_result(a, b) -> bool:
+    """Two SimResults equal field by field to the bit (NaN where both are)."""
+    return all(torch.equal(x.cpu(), y.cpu()) or (x.isnan().all() and y.isnan().all())
+               for x, y in zip(a, b))
+
+
+def cell_of(result, index):
+    """One cell of a grid's SimResult (leaves with leading grid axes)."""
+    return type(result)(*(x[index] if x.ndim >= len(index) else x for x in result))
+
+
+def check_grid_equals_looped(dev) -> None:
+    """(a) Bit identity on the card: simulate_grid of every algorithm at
+    M=500 K=10 (2 seeds x loads 0.5 / 0.9, T=500, warmup 125), and
+    simulate_sweep of BP and BP-Pod over uniform, rack_outage and
+    mmpp_bursty: the two corner cells of each equal looped simulate runs
+    given the grid's a_max, every SimResult field to the bit."""
+    from repro_torch.core import (ALGORITHMS, Cluster, Rates, SimConfig, simulate,
+                                  simulate_grid, simulate_sweep, sweep_grid)
+    from repro_torch.scenarios import canonical_pad, realize
+
+    cl, rates = Cluster(M=500, K=10), Rates(*PAPER_RATES)
+    cfg = SimConfig(T=500, warmup=125, route_mode="batched")
+    loads, seed0 = (0.5, 0.9), 11
+    scen, cap = realize(None, cl, rates, cfg.T, device="cpu")
+    a_max = cfg.resolve_a_max(float(np.max(np.asarray([l * cap for l in loads],
+                                                      np.float32))),
+                              float(scen.lam_shape.max()))
+    t0 = time.perf_counter()
+    for algo in ALGORITHMS:
+        grid = simulate_grid(algo, cl, rates, loads, 2, cfg, seed0=seed0, device=dev)
+        for k, l in ((0, 0), (1, 1)):
+            one = simulate(algo, cl, rates, loads[l], seed0 + k, cfg, a_max=a_max,
+                           device=dev)
+            if not same_result(cell_of(grid, (k, l)), one):
+                fail(f"simulate_grid {algo}: cell (seed {k}, load {loads[l]}) "
+                     f"differs from the looped simulate run")
+        log(f"  grid {algo:20s} M=500 2 seeds x loads {loads} T={cfg.T}: corner "
+            f"cells equal looped simulate runs (a_max={a_max})")
+    names = ("uniform", "rack_outage", "mmpp_bursty")
+    pad = canonical_pad(cl)
+    a_max = sweep_grid(cl, rates, cfg, loads, names, pad, device=dev)[3]
+    for algo in ("balanced_pandas", "balanced_pandas_pod"):
+        _, res, _ = simulate_sweep(algo, cl, rates, loads, 2, cfg, seed0=seed0,
+                                   scenarios=names, pad=pad, device=dev)
+        for s, k, l in ((0, 0, 0), (len(names) - 1, 1, 1)):
+            one = simulate(algo, cl, rates, loads[l], seed0 + k, cfg,
+                           scenario=names[s], pad=pad, a_max=a_max, device=dev)
+            if not same_result(cell_of(res, (s, k, l)), one):
+                fail(f"simulate_sweep {algo}: cell ({names[s]}, seed {k}, load "
+                     f"{loads[l]}) differs from the looped simulate run")
+        log(f"  sweep {algo:19s} M=500 {names} x 2 seeds x loads {loads}: corner "
+            f"cells equal looped simulate runs (a_max={a_max})")
+    log(f"  grid bit-identity checks took {time.perf_counter() - t0:.1f} s")
+
+
+def run_grids(dev, quick: bool) -> dict:
+    """(b) The grid entry points at full width, each run with the launch
+    counters zeroed just before it and read just after: simulate_grid of
+    BP, BP-Pod and JSQ-MaxWeight-Pod at M=500 over the PAPER preset's loads
+    x 4 seeds (32 cells, T=10 000); simulate_sweep of BP and BP-Pod at
+    M=500 over the registry's 11 scenarios with uniform placement x loads
+    0.45 / 0.7 / 0.9 x 4 seeds (132 cells, T=5 000); and of BP-Pod at M=100
+    over the 4 Zipf scenarios x the same loads x 2 seeds (24 cells, T=10
+    000).  Gates: route_commit launched exactly T times a run (one launch a
+    slot for every cell), at the [M, 3] operand in every BP sweep slot and
+    in none of the uniform grids' slots, no other kernel; clip 0 and every
+    mean finite in every cell; throughput over arrivals, averaged over the
+    seeds, within 5% at every load <= 0.5.  Returns the launches."""
+    from repro_torch.core import (Cluster, Rates, SimConfig, simulate_grid,
+                                  simulate_sweep, sweep_grid)
+    from repro_torch.kernels import LAUNCHES, MATRIX_LAUNCHES, reset_launch_counts
+    from repro_torch.scenarios import SCENARIOS, realize
+
+    rates = Rates(*PAPER_RATES)
+    paper, placed = Cluster(M=500, K=10), Cluster(M=100, K=10)
+    uniform_placed = [n for n in SCENARIOS if n not in ZIPF_SCENARIOS]
+    scale = 20 if quick else 1
+    runs = [("grid", a, paper, PAPER_LOADS, 4, 10_000, 2_500, None)
+            for a in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod")]
+    runs += [("sweep", a, paper, SWEEP_LOADS, 4, 5_000, 1_250, uniform_placed)
+             for a in ("balanced_pandas", "balanced_pandas_pod")]
+    runs.append(("sweep", "balanced_pandas_pod", placed, SWEEP_LOADS, 2, 10_000, 2_500,
+                 list(ZIPF_SCENARIOS)))
+    launches = {"route_commit_full": 0, "route_commit_pod": 0}
+    for kind, algo, cl, loads, seeds, T, warmup, names in runs:
+        T, warmup = max(T // scale, min(T, 5_000)), max(warmup // scale, min(warmup, 1_250))
+        cfg = SimConfig(T=T, warmup=warmup, route_mode="batched")
+        name = "route_commit_full" if algo == "balanced_pandas" else "route_commit_pod"
+        t0 = time.perf_counter()
+        if kind == "grid":
+            lam = np.asarray([[l * realize(None, cl, rates, T, device="cpu")[1]
+                               for l in loads]])
+        else:       # the realizations (LP included) are cached for the run
+            lam = sweep_grid(cl, rates, cfg, loads, names, device=dev)[2].cpu().numpy()
+        realize_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "grid":
+            r = simulate_grid(algo, cl, rates, loads, seeds, cfg, device=dev)
+            r = type(r)(*(x[None] if x.ndim >= 2 else x for x in r))   # [1, K, L]
+        else:
+            _, r, _ = simulate_sweep(algo, cl, rates, loads, seeds, cfg,
+                                     scenarios=names, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, at_matrix = dict(LAUNCHES), dict(MATRIX_LAUNCHES)
+        launches[name] += counts[name]
+        cells = lam.size * seeds
+        label = (f"{kind} {algo} M={cl.M} "
+                 f"{'uniform' if names is None else f'{len(names)} scenarios'} x "
+                 f"{seeds} seeds x loads {loads} T={T}")
+        log(f"  {label}: cells={cells} wall={wall:.2f}s slots/s={T / wall:.1f} "
+            f"cell-slots/s={cells * T / wall:.1f} "
+            f"routed_tasks/s={float(lam.sum()) * seeds * T / wall:.1f} "
+            f"launches={counts} at_[M,3]={at_matrix} realize={realize_s:.3f}s")
+        mean = r.mean_completion_slots.cpu().numpy()                # [S, K, L]
+        thr = (r.throughput / r.arrival_rate_hat).cpu().numpy().mean(axis=1)
+        for s, row in enumerate(names or ["uniform"]):
+            log(f"    {row:22s} mean_completion_slots by load "
+                f"{np.round(mean[s].mean(axis=0), 4).tolist()} throughput/arrivals "
+                f"{np.round(thr[s], 5).tolist()}")
+        matrix = kind == "sweep" and algo.startswith("balanced_pandas")
+        if counts[name] != T:
+            fail(f"{label}: {name} launched {counts[name]} times in {T} slots")
+        if at_matrix[name] != (T if matrix else 0):
+            fail(f"{label}: {at_matrix[name]} of {T} launches at the [M, 3] operand, "
+                 f"expected {T if matrix else 0}")
+        if sum(c for k, c in counts.items() if k != name):
+            fail(f"{label}: unexpected launches {counts}")
+        if not np.isfinite(mean).all():
+            fail(f"{label}: a mean completion is not finite")
+        if float(r.clip_fraction.max()) != 0.0:
+            fail(f"{label}: arrivals were clipped ({float(r.clip_fraction.max())})")
+        for l, load in enumerate(loads):
+            if load <= 0.5 and np.abs(thr[:, l] - 1.0).max() > 0.05:
+                fail(f"{label}: throughput {thr[:, l].tolist()} of arrivals at load {load}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: complexity (paper §IV-C)
 # ---------------------------------------------------------------------------
 
@@ -905,17 +1190,47 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
     return launches
 
 
-def profile_slots(dev, slots: int = 400) -> None:
-    """Where a slot's time goes on the card: torch.profiler over ``slots``
-    slots of BP, BP-Pod and JSQ-MaxWeight-Pod at load 0.9, M=500 and M=5000,
-    on `uniform`, and at M=500 on rack_outage (one window: each slot reads
-    ``speed_at`` and BP its [M, 3] inverse rates) (a CUDA-graph-free,
-    eager loop).  Prints wall per slot, device busy time per slot, the
-    device's idle share, kernel launches per slot, route_commit's device
-    time per slot and the top kernels."""
+def profile_run(label: str, run, slots: int) -> None:
+    """torch.profiler over one call of ``run`` (``slots`` slots, warmed by
+    a first call): wall per slot, device busy time per slot, the device's
+    idle share, kernel launches per slot, route_commit's device time per
+    slot and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import Cluster, Rates, SimConfig, simulate
+    run()                                                         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    rc = sum(us for name, us in by_name.items() if "route_commit" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile {label}, {slots} slots: "
+        f"wall/slot={wall / slots * 1e3:.4f} ms "
+        f"device_busy/slot={busy / slots * 1e3:.4f} ms "
+        f"idle_share={1 - busy / wall:.4f} "
+        f"kernels/slot={len(kern) / slots:.1f} "
+        f"route_commit_us/slot={rc / slots:.3f}")
+    for name, us in top:
+        log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+
+
+def profile_slots(dev, slots: int = 400) -> None:
+    """Where a slot's time goes on the card (a CUDA-graph-free, eager
+    loop): BP, BP-Pod and JSQ-MaxWeight-Pod at load 0.9, M=500 and M=5000,
+    on `uniform`, and at M=500 on rack_outage (one window: each slot reads
+    ``speed_at`` and BP its [M, 3] inverse rates); then BP-Pod grids of 1,
+    32 and 132 cells (seeds) at M=500, load 0.9, on `uniform`, each also
+    timed without the profiler (cell-slots/s)."""
+    from repro_torch.core import Cluster, Rates, SimConfig, simulate, simulate_grid
 
     rates = Rates(*PAPER_RATES)
     cfg = SimConfig(T=slots, warmup=0, route_mode="batched")
@@ -924,33 +1239,22 @@ def profile_slots(dev, slots: int = 400) -> None:
              for algo in algos]
     cases += [(Cluster(M=500, K=10), algo, "rack_outage") for algo in algos]
     for cl, algo, scenario in cases:
-        run = lambda: simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
-                               device=dev)
-        run()                                                     # warm
+        profile_run(f"{algo} {scenario or 'uniform'} M={cl.M} load=0.9",
+                    lambda: simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
+                                     device=dev), slots)
+    cl = Cluster(M=500, K=10)
+    for N in (1, 32, 132):
+        run = lambda: simulate_grid("balanced_pandas_pod", cl, rates, [0.9], N, cfg,
+                                    device=dev)
+        profile_run(f"grid balanced_pandas_pod uniform M=500 load=0.9 cells={N}",
+                    run, slots)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
-        by_name: dict = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        rc = sum(us for name, us in by_name.items() if "route_commit" in name)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"  profile {algo} {scenario or 'uniform'} M={cl.M} load=0.9, "
-            f"{slots} slots: "
-            f"wall/slot={wall / slots * 1e3:.4f} ms "
-            f"device_busy/slot={busy / slots * 1e3:.4f} ms "
-            f"idle_share={1 - busy / wall:.4f} "
-            f"kernels/slot={len(kern) / slots:.1f} "
-            f"route_commit_us/slot={rc / slots:.3f}")
-        for name, us in top:
-            log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"    unprofiled: wall/slot={wall / slots * 1e3:.4f} ms "
+            f"cell-slots/s={N * slots / wall:.1f}")
 
 
 def sweep_route_commit(dev) -> None:
@@ -1026,11 +1330,16 @@ def main() -> int:
     log("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
     jsq_rows, jsq_err = check_jsq_operand(dev, args.quick)
+    cell_rows, cell_err = check_batched_route_commit(dev, args.quick)
     err = check_snapshot_kernels(dev)
     snap = time_snapshot_kernels(dev, args.quick, floor)
     log("[3] simulator")
     check_small_run_matches_cpu(dev)
     launches = run_simulations(dev, args.quick)
+    log("[3] the grid entry points: simulate_grid and simulate_sweep")
+    check_grid_equals_looped(dev)
+    for name, n in run_grids(dev, args.quick).items():
+        launches[name] += n
     log("[4] complexity (paper §IV-C): probes per routing decision")
     complexity_probes()
     log("[4] time per routing decision, O(M) weighted_argmin against O(d) "
@@ -1057,12 +1366,13 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max(r["max_abs_err"], jsq_err if variant == "pod" else 0.0),
+            max_abs_err=max(r["max_abs_err"], cell_err,
+                            jsq_err if variant == "pod" else 0.0),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             shape=f"M=500 B={r['B']} valid={r['n_valid']}"
                   + ("" if variant == "full" else " C=11"),
-            by_shape=by_shape))
+            by_shape=by_shape, by_cells=cell_rows[variant]))
     for name in ("weighted_argmin", "pod_route", "queue_update"):
         r = snap[(name, 500)]
         kernels.append(dict(

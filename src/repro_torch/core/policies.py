@@ -63,14 +63,29 @@ def weighted_score(W: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(inv), W * inv, _INF)
 
 
+def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` row by row: x [..., M] and idx [..., *k] with the
+    same leading dimensions give [..., *k]; a 1-d x is indexed by idx
+    whole."""
+    if x.ndim == 1:
+        return x[idx.to(torch.int64)]
+    lead = x.shape[:-1]
+    flat = idx.to(torch.int64).reshape(*lead, -1)
+    return torch.gather(x, -1, flat).reshape(idx.shape)
+
+
 def inv_rate_for(inv_rates: torch.Tensor, idx: torch.Tensor,
                  cls: torch.Tensor) -> torch.Tensor:
     """Reciprocal service rate of server ``idx`` for a task of class
-    ``cls``; inv_rates is the homogeneous [3] vector or a per-server
-    [M, 3] matrix.  idx/cls broadcast together."""
+    ``cls``; inv_rates is the homogeneous [3] vector, a per-server [M, 3]
+    matrix, or one [M, 3] matrix a cell ([N, M, 3], with idx/cls leading
+    by N).  idx/cls broadcast together."""
     if inv_rates.ndim == 1:
         return inv_rates[cls.to(torch.int64)]
-    return inv_rates[idx.to(torch.int64), cls.to(torch.int64)]
+    if inv_rates.ndim == 2:
+        return inv_rates[idx.to(torch.int64), cls.to(torch.int64)]
+    idx, cls = torch.broadcast_tensors(idx.to(torch.int64), cls.to(torch.int64))
+    return take_last(inv_rates.flatten(-2), idx * 3 + cls)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,10 +143,12 @@ def route_pod_candidates(rnd: torch.Tensor, W: torch.Tensor,
     """Argmin of weighted workload over an explicit candidate list.
 
     Ties: faster class first (candidate ordering), then the uniform ``rnd``
-    [..., C] (the reference draws it from its key), then slot.  Returns
+    [..., C] (the reference draws it from its key), then slot.  W is [M],
+    or [N, M] with the candidates leading by N (one cell each).  Returns
     (server, class) for each task."""
     idx = cand_idx.to(torch.int64)
-    scores = weighted_score(W[idx], inv_rate_for(inv_rates, idx, cand_cls))
+    scores = weighted_score(take_last(W, idx),
+                            inv_rate_for(inv_rates, idx, cand_cls))
     c = lex_argmin(scores, cand_cls.to(torch.float32), rnd,
                    mask=valid.to(torch.bool)).to(torch.int64)[..., None]
     sel = torch.gather(cand_idx, -1, c)[..., 0]
@@ -145,7 +162,8 @@ def route_balanced_pandas_full(W: torch.Tensor, cls: torch.Tensor,
     """Balanced-Pandas O(M) routing: argmin over all M of the weighted
     workload (paper §IV-A).  Ties -> faster class (unless
     ``class_tiebreak`` is False), then ``tie_rnd`` (a [M] random priority
-    shared within a slot).  inv_rates: [3] or per-server [M, 3]."""
+    shared within a slot).  inv_rates: [3] or per-server [M, 3], or [N,
+    M, 3] with W, cls and tie_rnd leading by N."""
     m = torch.arange(cls.shape[-1], device=cls.device)
     ww = weighted_score(W, inv_rate_for(inv_rates, m, cls))
     mask = torch.ones(cls.shape, dtype=torch.bool, device=cls.device)
@@ -160,8 +178,9 @@ def route_jsq_local(rnd: torch.Tensor, Q: torch.Tensor,
     """JSQ-MaxWeight(-Pod) / JSQ-Priority routing: join the shortest *local*
     queue (paper §IV-B).  Q: [M]; locals_: int32 [..., R]; rnd: [..., R]
     tie uniforms (lower wins).  Already O(1): only the n_replicas local
-    queues are examined.  Returns the chosen server, int32 [...]."""
-    qloc = Q[locals_.to(torch.int64)]
+    queues are examined.  Q may be [N, M] with locals_ and rnd leading by
+    N.  Returns the chosen server, int32 [...]."""
+    qloc = take_last(Q, locals_)
     mask = torch.ones(locals_.shape, dtype=torch.bool, device=locals_.device)
     pick = lex_argmin(qloc.to(torch.float32), rnd, mask=mask)
     return torch.gather(locals_, -1, pick.to(torch.int64)[..., None])[..., 0]

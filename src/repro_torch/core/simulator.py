@@ -55,7 +55,19 @@ the slot's own [M, 3] rates, ``+inf`` where a tier is down.  A realization
 with unit speeds and no windows (``uniform``) takes the homogeneous fast
 path instead: unit speeds, no masks, the ``[3]`` rate vector.  Skewed
 placement and the per-task size law enter through the draws.  Telemetry
-and the grid entry points come with later slices.
+comes with a later slice.
+
+Cells.  Every state tensor, accumulator and draw carries a leading cell
+axis [N], and one slot step advances all N cells at once: the BP and SQ
+families route every cell's arrival batch through ONE ``route_commit``
+launch (one CTA a cell).  ``simulate`` runs a grid of one cell;
+``simulate_grid`` runs loads x seeds of one scenario and ``simulate_sweep``
+scenarios x seeds x loads (``sweep_grid``, ``scenarios.stack_scenarios``),
+each in one slot loop.  Seed k of every cell draws from its own
+``torch.Generator`` seeded ``seed0 + k``, the generator a looped
+``simulate(..., key=seed0 + k)`` uses, so a cell equals that looped run bit
+for bit when both share the grid's ``a_max``.  The slot steps also take one
+cell's unbatched state (the level-2 parity tests feed them so).
 """
 from __future__ import annotations
 
@@ -69,8 +81,10 @@ import torch
 
 from ..kernels.ref import workload
 from ..kernels.route_commit import route_commit
-from ..scenarios.build import (ScenarioData, placement_cdf, realize,
-                               sample_locals_scenario, speed_at)
+from ..scenarios.build import (ScenarioData, host, placement_cdf, realize,
+                               sample_locals_scenario, scenario_row,
+                               speed_at, stack_scenarios)
+from ..scenarios.spec import scenario_names
 from .cluster import (GEOMETRIC, LOCAL, LOGNORMAL, RACK, REMOTE, Cluster,
                       Rates, durations_from_normal, durations_from_uniform,
                       locality_class, safe_inv_rates, sample_locals,
@@ -79,7 +93,7 @@ from .policies import (PodSpec, bp_candidates_per_route,
                        jsqmw_candidates_per_schedule, lex_argmax,
                        pod_candidate_classes, pod_candidates, rack_peer_of,
                        remote_peer_of, route_balanced_pandas_full,
-                       route_jsq_local, route_pod_candidates)
+                       route_jsq_local, route_pod_candidates, take_last)
 
 _F = torch.float32
 _INF = float("inf")
@@ -139,9 +153,10 @@ class RawSums(NamedTuple):
     final_N: torch.Tensor
 
     @staticmethod
-    def zero(device="cpu") -> "RawSums":
-        """All-zero accumulator."""
-        z = lambda *s: torch.zeros(s, dtype=_F, device=device)
+    def zero(device="cpu", cells: Optional[int] = None) -> "RawSums":
+        """All-zero accumulator, with a leading [cells] axis if given."""
+        lead = () if cells is None else (cells,)
+        z = lambda *s: torch.zeros(lead + s, dtype=_F, device=device)
         return RawSums(z(), z(), z(), z(), z(), z(), z(), z(3), z(3), z(),
                        z(), z(), z())
 
@@ -175,18 +190,24 @@ class BPState(NamedTuple):
     cls: torch.Tensor        # int32 [M] class of the in-service task
 
     @staticmethod
-    def zero(M: int, device="cpu") -> "BPState":
-        """Empty cluster of M servers."""
-        return BPState(torch.zeros((M, 3), dtype=torch.int32, device=device),
-                       *_idle_servers(M, device))
+    def zero(M: int, device="cpu", cells: Optional[int] = None) -> "BPState":
+        """Empty cluster of M servers (in each of ``cells`` cells)."""
+        return BPState(torch.zeros(_lead(cells) + (M, 3), dtype=torch.int32,
+                                   device=device),
+                       *_idle_servers(M, device, cells))
 
 
-def _idle_servers(M: int, device):
+def _lead(cells: Optional[int]) -> tuple:
+    return () if cells is None else (cells,)
+
+
+def _idle_servers(M: int, device, cells: Optional[int] = None):
     """(busy, rem, cls) of M idle servers, the last three fields of every
     family's state."""
-    return (torch.zeros(M, dtype=torch.bool, device=device),
-            torch.zeros(M, dtype=_F, device=device),
-            torch.zeros(M, dtype=torch.int32, device=device))
+    shape = _lead(cells) + (M,)
+    return (torch.zeros(shape, dtype=torch.bool, device=device),
+            torch.zeros(shape, dtype=_F, device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device))
 
 
 class SQState(NamedTuple):
@@ -198,10 +219,11 @@ class SQState(NamedTuple):
     cls: torch.Tensor        # int32 [M]
 
     @staticmethod
-    def zero(M: int, device="cpu") -> "SQState":
-        """Empty cluster of M servers."""
-        return SQState(torch.zeros(M, dtype=torch.int32, device=device),
-                       *_idle_servers(M, device))
+    def zero(M: int, device="cpu", cells: Optional[int] = None) -> "SQState":
+        """Empty cluster of M servers (in each of ``cells`` cells)."""
+        return SQState(torch.zeros(_lead(cells) + (M,), dtype=torch.int32,
+                                   device=device),
+                       *_idle_servers(M, device, cells))
 
 
 class FCFSState(NamedTuple):
@@ -213,10 +235,11 @@ class FCFSState(NamedTuple):
     cls: torch.Tensor        # int32 [M]
 
     @staticmethod
-    def zero(M: int, device="cpu") -> "FCFSState":
-        """Empty cluster of M servers."""
-        return FCFSState(torch.zeros((), dtype=torch.int32, device=device),
-                         *_idle_servers(M, device))
+    def zero(M: int, device="cpu", cells: Optional[int] = None) -> "FCFSState":
+        """Empty cluster of M servers (in each of ``cells`` cells)."""
+        return FCFSState(torch.zeros(_lead(cells), dtype=torch.int32,
+                                     device=device),
+                         *_idle_servers(M, device, cells))
 
 
 _STATE_DTYPES = (torch.int32, torch.bool, torch.float32, torch.int32)
@@ -268,9 +291,9 @@ class SlotDraws(NamedTuple):
 
     raw: torch.Tensor                          # int32 [] Poisson count, unclipped
     locals_: torch.Tensor                      # int32 [A, n_rep] replica triples
-    cls: torch.Tensor                          # int32 [A, M] their locality
+    cls: Optional[torch.Tensor]                # int32 [A, M] their locality
     #                                            classes (derived from locals_,
-    #                                            carried so it is built once)
+    #                                            not drawn; full BP only)
     dur: torch.Tensor                          # int32 [M, 3] duration per class
     prio: Optional[torch.Tensor] = None        # int32 [M] tie permutation
     #                                            (full BP, batched)
@@ -315,17 +338,21 @@ class FCFSDraws(NamedTuple):
 
 
 class TorchDraws:
-    """Default draw source: ``draws(t)`` is slot t's draws for ``family``
-    ("bp", "sq" or "fcfs"), in the reference's distributions, from a
-    ``torch.Generator`` on the device of ``lam_t`` ([T] arrival intensity
-    per slot).
+    """Default draw source of one cell: ``draws(t)`` is slot t's draws for
+    ``family`` ("bp", "sq" or "fcfs"), in the reference's distributions,
+    from a ``torch.Generator`` on the device of ``lam_t`` ([T] arrival
+    intensity per slot).
 
     Draws are made for a block of slots at once (up to 256, fewer when a
-    slot's largest draw, BP's [a_max, M] class grid or full JSQ's [S, M]
-    ties, is large) and handed out as views, so a slot costs no generator
-    launches of its own.  The full-BP tie permutation is the argsort of
-    iid uniforms: a uniform permutation.  Bounded integers are scaled
-    uniforms (``uniform_int``).
+    slot's largest draw, full JSQ's [S, M] ties or BP-Pod's candidate
+    counting over [a_max, M], is large) and handed out as views, so a slot
+    costs no generator launches of its own.  The block depends on the
+    cell's shapes only, never on how many cells a grid runs, so that a grid
+    cell draws exactly what its looped run draws.  The full-BP tie
+    permutation is the argsort of iid uniforms: a uniform permutation.
+    Bounded integers are scaled uniforms (``uniform_int``).  BP's [a_max,
+    M] class grid is not drawn: ``draws(t)`` derives it from the slot's
+    replica triples, and ``GridDraws`` for many slots and cells at once.
 
     ``scen`` (a ScenarioData on the same device, or None for ``uniform``)
     sets the placement law of the replica triples, each slot drawing from
@@ -350,7 +377,8 @@ class TorchDraws:
         self.p = rates.as_array(lam_t.device)                     # [3]
         M, dev = cluster.M, lam_t.device
         self.S = min(cfg.s_max, M)
-        lanes = {"bp": a_max * M, "fcfs": M,
+        bp = max(M, a_max * cluster.n_replicas) if pod is None else a_max * M
+        lanes = {"bp": bp, "fcfs": M,
                  "sq": max(M, self.S * (M if pod is None else 1 + pod.d))}
         self.block = max(1, min(256, self._BLOCK_ELEMS // lanes[family]))
         if pod is not None and family == "bp":
@@ -411,7 +439,6 @@ class TorchDraws:
             return SQDraws(raw, locals_, self._dur(n, S),
                            rand(n, S, M if pod is None else 1 + pod.d),
                            rand(n, S), **extra)
-        cls = locality_class(c, locals_)
         dur = self._dur(n, M)
         extra = size(M)
         if self.pod is None and self.sequential:
@@ -419,19 +446,111 @@ class TorchDraws:
         elif self.pod is None:
             extra["prio"] = rand(n, M).argsort(dim=1).to(torch.int32)
         else:
+            cls = locality_class(c, locals_)
             ci, _, cv = pod_candidates(g, c, locals_, cls, self.pod,
                                        cand_cls=self.cand_cls)
             extra.update(cand_idx=ci, cand_valid=cv)
             if self.sequential:
                 extra["cand_rnd"] = rand(*ci.shape)
-        return SlotDraws(raw, locals_, cls, dur, **extra)
+        return SlotDraws(raw, locals_, None, dur, **extra)
 
     def __call__(self, t: int):
         if self._buf is None or not self._t0 <= t < self._t0 + self.block:
             self._t0, self._buf = t, self._fill(t)
         i = t - self._t0
-        return type(self._buf)(*(None if x is None else x[i]
-                                 for x in self._buf))
+        d = type(self._buf)(*(None if x is None else x[i] for x in self._buf))
+        if self.family == "bp" and self.pod is None:
+            d = d._replace(cls=locality_class(self.cluster, d.locals_))
+        return d
+
+
+class GridDraws:
+    """Draw source of N cells: slot t's draws of every cell, each field
+    with a leading [N] axis.  Cell i draws from ``cells[i]`` (a
+    ``TorchDraws`` with its own generator, lam and scenario) in blocks of
+    the same slots, and the blocks are stacked once a block.  Full BP's
+    class grid is derived from the stacked replica triples for as many
+    slots at once as a grid-wide budget of ``_CLS_ELEMS`` elements allows
+    (one slot at the least), so a slot of a large grid costs a fraction of
+    one ``locality_class`` and a one-cell grid derives a block at once.
+    Where only some cells draw the size law, the others get draws of 0,
+    whose size multiplier is exactly 1."""
+
+    _CLS_ELEMS = 1 << 22
+
+    def __init__(self, cells: list):
+        first = cells[0]
+        if any(c.block != first.block for c in cells):
+            raise ValueError("the cells of a grid draw in blocks of one size")
+        self.cells, self.block, self.cluster = cells, first.block, first.cluster
+        self.full_bp = first.family == "bp" and first.pod is None
+        self.cls_block = max(1, min(self.block, self._CLS_ELEMS // (
+            len(cells) * first.a_max * first.cluster.M)))
+        self._t0 = self._buf = self._c0 = self._cls = None
+
+    def __call__(self, t: int):
+        if self._buf is None or not self._t0 <= t < self._t0 + self.block:
+            self._t0, self._buf = t, _stack_cells([c._fill(t) for c in self.cells])
+            self._cls = None
+        i = t - self._t0
+        d = type(self._buf)(*(None if x is None else x[i] for x in self._buf))
+        if self.full_bp:
+            if self._cls is None or not self._c0 <= i < self._c0 + self.cls_block:
+                self._c0 = i
+                self._cls = locality_class(
+                    self.cluster, self._buf.locals_[i:i + self.cls_block])
+            d = d._replace(cls=self._cls[i - self._c0])
+        return d
+
+
+def _stack_cells(parts):
+    """One draws tuple from the cells' blocks: every field [n, ...] stacked
+    to [n, N, ...]; a field some cells lack (the size law's) is 0 in
+    those."""
+    def stack(xs):
+        have = [x for x in xs if x is not None]
+        if not have:
+            return None
+        xs = [torch.zeros_like(have[0]) if x is None else x for x in xs]
+        return xs[0][:, None] if len(xs) == 1 else torch.stack(xs, dim=1)
+    return type(parts[0])(*(stack(xs) for xs in zip(*parts)))
+
+
+def _lift(x):
+    """A one-cell value with a leading cell axis of 1: a tensor, or every
+    tensor of a draws / state / sums tuple; anything else unchanged."""
+    if torch.is_tensor(x):
+        return x[None]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_lift, x))
+    return x
+
+
+def _drop(x):
+    """The inverse of ``_lift`` on a result: the one cell's values (also
+    through a plain tuple of results)."""
+    if torch.is_tensor(x):
+        return x[0]
+    if isinstance(x, tuple):
+        items = map(_drop, x)
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _one_cell_too(is_one: Callable[..., bool]):
+    """Let a function written for a leading cell axis also take one cell's
+    unbatched positional arguments (``is_one(*args)`` says which): those
+    are lifted to one cell, and the result's cell axis is dropped.  Keyword
+    arguments pass through as they are: constants, rates and speeds are
+    shared by every cell."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if not is_one(*args):
+                return fn(*args, **kw)
+            return _drop(fn(*map(_lift, args), **kw))
+        return call
+    return wrap
 
 
 # ---------------------------------------------------------------------------
@@ -440,8 +559,9 @@ class TorchDraws:
 
 
 def _speed_of_class(speed: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
-    """[M] per-server speed for class ``cls[m]``; speed: [M, 3]."""
-    return torch.gather(speed, 1, cls.to(torch.int64)[:, None])[:, 0]
+    """[..., M] per-server speed for class ``cls[..., m]``; speed: [..., M,
+    3] with the same leading dimensions."""
+    return torch.gather(speed, -1, cls.to(torch.int64)[..., None])[..., 0]
 
 
 def _progress_service(busy, rem, speed=None, cls=None):
@@ -457,19 +577,27 @@ def _progress_service(busy, rem, speed=None, cls=None):
 
 
 def _arrival_batch(draws, a_max: int):
-    """Arrival mask (Poisson count clipped to a_max) and the clipped
-    count."""
+    """Arrival mask [N, a_max] (Poisson count clipped to a_max) and the
+    clipped count [N]."""
     n = torch.clamp_max(draws.raw, a_max)
-    mask = torch.arange(a_max, device=n.device) < n
+    mask = torch.arange(a_max, device=n.device) < n[..., None]
     return mask, (draws.raw - n).to(_F)
 
 
+def _rows_of(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """x[n, rows[n]] for every cell n: x [N, M, ...], rows [N, S] ->
+    [N, S, ...]."""
+    idx = rows.to(torch.int64).reshape(rows.shape + (1,) * (x.ndim - 2))
+    return torch.gather(x, 1, idx.expand(rows.shape + x.shape[2:]))
+
+
 def _relation_rows(rack_of: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """[S, M] locality class of server rows[s] serving a task queued at (=
-    local to) server n; ``rack_of`` is ``Cluster.rack_of`` on the device."""
+    """[..., S, M] locality class of server rows[..., s] serving a task
+    queued at (= local to) server n; ``rack_of`` is ``Cluster.rack_of`` on
+    the device."""
     n = torch.arange(rack_of.shape[0], device=rows.device)
-    same = rack_of[rows][:, None] == rack_of[None, :]
-    own = rows[:, None] == n[None, :]
+    same = rack_of[rows][..., None] == rack_of
+    own = rows[..., None] == n
     return torch.where(own, LOCAL, torch.where(same, RACK, REMOTE))
 
 
@@ -484,12 +612,13 @@ def _acc(sums: RawSums, *, in_half2: bool, N, arr, clipped, comp, starts,
     zero = torch.zeros_like(N)
     inc = torch.cat([torch.stack([
         torch.ones_like(N), N, zero if in_half2 else N, N if in_half2 else zero,
-        arr, clipped, comp]), starts, routed,
-        torch.stack([busy_n, routes, scheds])])
-    cur = torch.cat([torch.stack(sums[:7]), sums.starts, sums.routed,
-                     torch.stack(sums[9:12])])
+        arr, clipped, comp], dim=-1), starts, routed,
+        torch.stack([busy_n, routes, scheds], dim=-1)], dim=-1)
+    cur = torch.cat([torch.stack(sums[:7], dim=-1), sums.starts, sums.routed,
+                     torch.stack(sums[9:12], dim=-1)], dim=-1)
     new = cur + inc
-    return RawSums(*new[:7], new[7:10], new[10:13], *new[13:16], final_N=N)
+    return RawSums(*new[..., :7].unbind(-1), new[..., 7:10], new[..., 10:13],
+                   *new[..., 13:16].unbind(-1), final_N=N)
 
 
 def _fma32(a, b, c) -> torch.Tensor:
@@ -528,11 +657,13 @@ _SQRT2 = _F32(math.sqrt(2.0))
 _HALF_SQRT2 = _F32(math.sqrt(0.5))
 
 
-def _task_work(dur: torch.Tensor, scen: Optional[ScenarioData] = None,
+def _task_work(dur: torch.Tensor, scen=None,
                e: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Float32 work units of freshly started tasks: the sampled duration
     times the scenario's size multiplier exp(size_mu + size_sigma * z), a
-    mean-1 lognormal, z standard normal.  ``e`` is z / sqrt(2), an
+    mean-1 lognormal, z standard normal.  ``scen`` holds ``size_mu`` and
+    ``size_sigma`` broadcasting against ``dur`` (a ScenarioData's scalars,
+    or a ``SizeLaw`` of a grid's cells).  ``e`` is z / sqrt(2), an
     N(0, 1/2) draw: the reference draws z = sqrt(2) * erfinv(u), and XLA
     folds the sqrt(2) into sigma, evaluating exp(mu + (sigma * sqrt(2)) *
     erfinv(u)); the port computes the same expression on ``e = erfinv(u)``,
@@ -545,9 +676,18 @@ def _task_work(dur: torch.Tensor, scen: Optional[ScenarioData] = None,
     return work * _exp_f32(_fma32(e, scen.size_sigma * _SQRT2, scen.size_mu))
 
 
+class SizeLaw(NamedTuple):
+    """The size law of a grid's cells: ``size_mu`` and ``size_sigma`` [N,
+    1] float32 (``_task_work``)."""
+
+    size_mu: torch.Tensor
+    size_sigma: torch.Tensor
+
+
 def _class_hits(cls: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
-    """bool [N, 3]: row n has a hit at column cls[n] where on[n]."""
-    return (cls[:, None] == torch.arange(3, device=cls.device)) & on[:, None]
+    """bool [..., 3]: entry i has a hit at column cls[..., i] where
+    on[..., i]."""
+    return (cls[..., None] == torch.arange(3, device=cls.device)) & on[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +697,8 @@ def _class_hits(cls: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
 
 def _bp_workload(Q: torch.Tensor, inv_rates: torch.Tensor) -> torch.Tensor:
     """Paper §IV-A: W_m = Q^l/alpha_m + Q^k/beta_m + Q^r/gamma_m;
-    non-finite (dead) entries contribute 0."""
+    non-finite (dead) entries contribute 0.  Q [..., M, 3]; inv_rates [3],
+    [M, 3] or [..., M, 3]."""
     inv = inv_rates[None, :] if inv_rates.ndim == 1 else inv_rates
     return workload(Q, torch.where(torch.isfinite(inv), inv, 0.0))
 
@@ -566,32 +707,37 @@ def _bp_schedule(dur, Q, busy, rem, cls, servable=None, scen=None,
                  size_e=None):
     """Idle servers start their own head-of-class *servable* task: local >
     rack > remote among classes whose tier is up (purely local
-    information, paper §IV-A).  ``dur`` [M, 3] holds each server's duration
-    for each class; ``servable`` bool [M, 3] (speed > 0), None: all
-    servable (the homogeneous fast path); ``scen`` and ``size_e`` the size
-    law (``_task_work``).  Returns (Q', busy', rem', cls',
-    starts_by_class [3], n_started)."""
+    information, paper §IV-A).  Every cell at once: ``dur`` [N, M, 3]
+    holds each server's duration for each class; ``servable`` bool [N, M,
+    3] (speed > 0), None: all servable (the homogeneous fast path);
+    ``scen`` and ``size_e`` the size law (``_task_work``).  Returns (Q',
+    busy', rem', cls', starts_by_class [N, 3], n_started [N])."""
     has = Q > 0 if servable is None else (Q > 0) & servable
-    pick = torch.argmax(has.to(torch.uint8), dim=1)         # first nonempty
-    start = ~busy & has.any(dim=1)
+    pick = torch.argmax(has.to(torch.uint8), dim=-1)        # first nonempty
+    start = ~busy & has.any(dim=-1)
     taken = _class_hits(pick, start)
     Q = Q - taken.to(torch.int32)
-    d = torch.gather(dur, 1, pick[:, None])[:, 0]
+    d = torch.gather(dur, -1, pick[..., None])[..., 0]
     busy = busy | start
     rem = torch.where(start, _task_work(d, scen, size_e), rem)
     cls = torch.where(start, pick.to(torch.int32), cls)
-    return Q, busy, rem, cls, taken.sum(dim=0).to(_F), start.sum().to(_F)
+    return (Q, busy, rem, cls, taken.sum(dim=-2).to(_F),
+            start.sum(dim=-1).to(_F))
 
 
 def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
                     sequential: bool, class_tiebreak: bool = True,
                     cand_cls: Optional[torch.Tensor] = None):
-    """Route a slot's arrival batch; returns (Q', sel [A], sel_cls [A]).
+    """Route every cell's arrival batch; returns (Q', sel [N, A], sel_cls
+    [N, A]).
 
-    batched: one ``route_commit`` launch (sequential commits inside the
-    batch; ties by class, then ``draws.prio`` / candidate slot).
-    sequential: per-arrival plain routing, each arrival seeing the previous
-    one's queues; random ties (``draws.tie_rnd`` / ``draws.cand_rnd``)."""
+    batched: one ``route_commit`` launch for all N cells (sequential
+    commits inside each cell's batch; ties by class, then ``draws.prio`` /
+    candidate slot).  sequential: per-arrival plain routing, each arrival
+    seeing the previous one's queues; random ties (``draws.tie_rnd`` /
+    ``draws.cand_rnd``); arrival b of every cell routes in one set of ops,
+    up to the largest arrival count of any cell (the cells with fewer
+    commit nothing past theirs)."""
     if not sequential:
         if pod is None:
             Q, _W, sel, sel_cls, _val = route_commit(
@@ -602,45 +748,60 @@ def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
                 cand_cls=cand_cls, cand_valid=draws.cand_valid)
         return Q, sel, sel_cls
 
-    # arrivals after the last valid one commit nothing and their decisions
-    # are never read (routed counts are masked): route up to that one only.
-    # This reads the arrival count on the host, once per slot.
-    n = max((b + 1 for b, v in enumerate(mask.tolist()) if v), default=0)
+    # arrivals after a cell's last valid one commit nothing and their
+    # decisions are never read (routed counts are masked): route up to the
+    # last valid one of any cell.  This reads the arrival counts on the
+    # host, once per slot.
+    n = int(mask.sum(dim=-1).max()) if mask.numel() else 0
+    N = Q.shape[0]
+    cells = torch.arange(N, device=Q.device)
     Q = Q.clone()
-    sel = torch.zeros(mask.shape[0], dtype=torch.int32, device=Q.device)
+    sel = torch.zeros(mask.shape, dtype=torch.int32, device=Q.device)
     sel_cls = torch.zeros_like(sel)
     for b in range(n):
         W = _bp_workload(Q, inv_rates)
         if pod is None:
-            s, c = route_balanced_pandas_full(W, cls_arr[b], inv_rates,
+            s, c = route_balanced_pandas_full(W, cls_arr[:, b], inv_rates,
                                               draws.tie_rnd, class_tiebreak)
         else:
-            s, c = route_pod_candidates(draws.cand_rnd[b], W,
-                                        draws.cand_idx[b], cand_cls[b],
-                                        draws.cand_valid[b], inv_rates)
-        Q.index_put_((s.to(torch.int64), c.to(torch.int64)),
-                     mask[b].to(torch.int32), accumulate=True)
-        sel[b], sel_cls[b] = s, c
+            s, c = route_pod_candidates(draws.cand_rnd[:, b], W,
+                                        draws.cand_idx[:, b],
+                                        cand_cls[..., b, :].expand(N, -1),
+                                        draws.cand_valid[:, b], inv_rates)
+        Q.index_put_((cells, s.to(torch.int64), c.to(torch.int64)),
+                     mask[:, b].to(torch.int32), accumulate=True)
+        sel[:, b], sel_cls[:, b] = s, c
     return Q, sel, sel_cls
 
 
+def _one_state(state, *_) -> bool:
+    """Does a step get one cell's unbatched state (busy is [M])?"""
+    return state.busy.ndim == 1
+
+
+@_one_cell_too(_one_state)
 def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
              cluster: Cluster, cfg: SimConfig, inv_rate_m: torch.Tensor,
              pod: Optional[PodSpec], a_max: int, measure: bool,
              in_half2: bool, class_tiebreak: bool = True,
              cand_cls: Optional[torch.Tensor] = None,
-             speed: Optional[torch.Tensor] = None,
-             scen: Optional[ScenarioData] = None):
-    """One slot of the BP family: completions -> scheduling -> arrivals and
-    routing -> accumulators.  ``speed`` [M, 3] is the slot's per-class
-    speed, with ``inv_rate_m`` the slot's [M, 3] inverse rates (``+inf``
+             speed: Optional[torch.Tensor] = None, scen=None):
+    """One slot of the BP family in every cell: completions -> scheduling
+    -> arrivals and routing -> accumulators.  State, sums and draws lead
+    by the cell axis [N] (or are one cell's, unbatched).  ``speed`` is the
+    slot's per-class speed, [M, 3] shared by every cell or [N, M, 3], with
+    ``inv_rate_m`` the slot's inverse rates ([M, 3] or [N, M, 3], ``+inf``
     where a tier is down); speed None is the homogeneous path (unit
-    speeds, the [3] vector).  ``scen`` carries the size law.  ``cand_cls``
-    ([A, C] int32, pod only) may be passed precomputed."""
+    speeds, the [3] vector).  ``scen`` carries the size law
+    (``_task_work``).  ``cand_cls`` ([A, C] int32, shared; pod only) may
+    be passed precomputed; full BP needs ``draws.cls``."""
+    N = state.Q.shape[0]
     if pod is not None and cand_cls is None:
         cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
                                          state.Q.device).expand(
             a_max, -1).contiguous()
+    if speed is not None:
+        speed = speed.expand(N, -1, -1)
     busy, rem, completed = _progress_service(state.busy, state.rem, speed,
                                              state.cls)
     Q, busy, rem, cls_serv, starts, n_started = _bp_schedule(
@@ -653,13 +814,14 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
         sequential=(cfg.route_mode == "sequential"),
         class_tiebreak=class_tiebreak, cand_cls=cand_cls)
 
-    routed = _class_hits(sel_cls, mask).sum(dim=0).to(_F)
-    busy_n = busy.sum().to(_F)
-    N = Q.sum().to(_F) + busy_n
-    arr = mask.sum().to(_F)
-    sums = _acc(sums, in_half2=in_half2, N=N, arr=arr, clipped=clipped,
-                comp=completed.sum().to(_F), starts=starts, routed=routed,
-                busy_n=busy_n, routes=arr, scheds=n_started, measure=measure)
+    routed = _class_hits(sel_cls, mask).sum(dim=-2).to(_F)
+    busy_n = busy.sum(dim=-1).to(_F)
+    Ns = Q.sum(dim=(-2, -1)).to(_F) + busy_n
+    arr = mask.sum(dim=-1).to(_F)
+    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
+                comp=completed.sum(dim=-1).to(_F), starts=starts,
+                routed=routed, busy_n=busy_n, routes=arr, scheds=n_started,
+                measure=measure)
     return BPState(Q, busy, rem, cls_serv), sums
 
 
@@ -696,121 +858,129 @@ def step_consts(cluster: Cluster, rates: Rates, pod: Optional[PodSpec],
 
 
 def _grant_conflicts(tgt, prio, has, Q, rnd):
-    """Resolve batched steal conflicts among S claimants: at most Q[n]
-    grants to queue n, higher-priority claimants first (prio = ascending
-    sort keys, then the uniforms ``rnd`` [S]).  Returns bool [S] granted.
+    """Resolve batched steal conflicts among S claimants in every cell: at
+    most Q[n] grants to queue n, higher-priority claimants first (prio =
+    ascending sort keys, then the uniforms ``rnd`` [N, S]).  Returns bool
+    [N, S] granted.
 
     Claimant i is granted iff its rank among same-target claimants is below
-    Q[tgt[i]]; the rank is a pairwise count of [S, S] staged compares."""
-    S = tgt.shape[0]
-    beats = torch.zeros((S, S), dtype=torch.bool, device=tgt.device)
-    eq = torch.ones((S, S), dtype=torch.bool, device=tgt.device)
+    Q[tgt[i]]; the rank is a pairwise count of [N, S, S] staged compares."""
+    S = tgt.shape[-1]
+    shape = tgt.shape[:-1] + (S, S)
+    beats = torch.zeros(shape, dtype=torch.bool, device=tgt.device)
+    eq = torch.ones(shape, dtype=torch.bool, device=tgt.device)
     for k in tuple(prio) + (rnd,):
-        # beats[i, j]: claimant j precedes i in (prio..., rnd) order
-        beats = beats | (eq & (k[None, :] < k[:, None]))
-        eq = eq & (k[None, :] == k[:, None])
-    same = (tgt[None, :] == tgt[:, None]) & has[None, :] & has[:, None]
-    rank = (same & beats).sum(dim=1)
-    return has & (rank < Q[tgt])
+        # beats[.., i, j]: claimant j precedes i in (prio..., rnd) order
+        beats = beats | (eq & (k[..., None, :] < k[..., :, None]))
+        eq = eq & (k[..., None, :] == k[..., :, None])
+    same = ((tgt[..., None, :] == tgt[..., :, None]) & has[..., None, :]
+            & has[..., :, None])
+    rank = (same & beats).sum(dim=-1)
+    return has & (rank < take_last(Q, tgt))
 
 
+@_one_cell_too(lambda draws, cluster, Q, *_: Q.ndim == 1)
 def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
                  consts: StepConsts, S: int, variant: str,
                  pod: Optional[PodSpec], speed: Optional[torch.Tensor] = None,
-                 scen: Optional[ScenarioData] = None):
-    """Batched scheduling of the SQ family.
+                 scen=None):
+    """Batched scheduling of the SQ family, in every cell at once (Q, busy,
+    rem, cls [N, M]; or one cell's, unbatched).
 
     variant "maxweight": argmax of rate-weighted queue lengths over all M
     (``pod`` None) or over own + d' sampled queues, each weighted by the
     serving server's own per-class speed; "priority": own > longest in
     rack > longest anywhere.  S == M takes every server as a row; S < M the
-    first S eligible servers in the order of ``draws.rows``.  ``speed``
-    [M, 3]: a (server, queue) pair whose class tier is down is ineligible
-    and a server with every tier down schedules nothing; None is the
-    homogeneous path.  ``scen`` carries the size law.  Returns (Q', busy',
-    rem', cls', starts [3], n_decisions, rows, tgt, granted)."""
-    M = cluster.M
+    first S eligible servers in the order of ``draws.rows`` (a stable
+    argsort of each cell's row).  ``speed`` [M, 3] or [N, M, 3]: a
+    (server, queue) pair whose class tier is down is ineligible and a
+    server with every tier down schedules nothing; None is the homogeneous
+    path.  ``scen`` carries the size law.  Returns (Q', busy', rem', cls',
+    starts [N, 3], n_decisions [N], rows, tgt, granted)."""
+    N, M = Q.shape
     idle = ~busy
-    anyq = (Q > 0).any()
+    anyq = (Q > 0).any(dim=-1, keepdim=True)
     eligible = idle & ((Q > 0) | anyq)
     if speed is not None:
-        eligible = eligible & (speed > 0).any(dim=1)
+        speed = speed.expand(N, -1, -1)
+        eligible = eligible & (speed > 0).any(dim=-1)
     if S == M:
         # every server is its own scheduling attempt (row order is
         # immaterial: grants tie-break on explicit uniforms)
-        rows = torch.arange(M, device=Q.device)
+        rows = torch.arange(M, device=Q.device).expand(N, M)
         act = eligible
     else:
         # up to S eligible servers in random order (the rest retry next
         # slot); ineligible servers tie at +inf, a stable sort keeps them
         # in index order as the reference's does
         rkey = torch.where(eligible, draws.rows, _INF)
-        rows = torch.argsort(rkey, stable=True)[:S]
-        act = eligible[rows]
+        rows = torch.argsort(rkey, dim=-1, stable=True)[:, :S]
+        act = eligible.gather(-1, rows)
+    sp_rows = None if speed is None else _rows_of(speed, rows)   # [N, S, 3]
 
     qf = Q.to(_F)
     if variant == "maxweight" and pod is None:
-        rel = _relation_rows(consts.rack_of, rows)              # [S, M]
-        w = qf[None, :] * consts.rates[rel]
+        rel = _relation_rows(consts.rack_of, rows)              # [N, S, M]
+        w = qf[:, None, :] * consts.rates[rel]
         if speed is None:
-            cand = (Q > 0)[None, :].expand(S, M)
+            cand = (Q > 0)[:, None, :].expand(N, S, M)
         else:
-            sp = speed[rows].gather(1, rel)     # the serving server's speed
+            sp = sp_rows.gather(-1, rel)        # the serving server's speed
             w = w * sp
-            cand = (Q > 0)[None, :] & (sp > 0)
+            cand = (Q > 0)[:, None, :] & (sp > 0)
         tgt = lex_argmax(w, draws.tie, mask=cand).long()
-        val = w.gather(1, tgt[:, None])[:, 0]
-        has = cand.any(dim=1) & act
+        val = w.gather(-1, tgt[..., None])[..., 0]
+        has = cand.any(dim=-1) & act
         prio = (-val,)
     elif variant == "maxweight":
         u = draws.cand
-        cand_idx = torch.cat([rows[:, None],
-                              rack_peer_of(cluster, rows, u[:, :pod.d_rack]),
-                              remote_peer_of(cluster, rows, u[:, pod.d_rack:])],
-                             dim=1)
-        qc = Q[cand_idx]
+        cand_idx = torch.cat([rows[..., None],
+                              rack_peer_of(cluster, rows, u[..., :pod.d_rack]),
+                              remote_peer_of(cluster, rows, u[..., pod.d_rack:])],
+                             dim=-1)
+        qc = take_last(Q, cand_idx)
         w = qc.to(_F) * consts.lane_rate
         cand = qc > 0
         if speed is not None:
-            sp = speed[rows][:, consts.lane_cls]
+            sp = sp_rows[..., consts.lane_cls]
             w = w * sp
             cand = cand & (sp > 0)
-        c = lex_argmax(w, draws.tie, mask=cand).long()[:, None]
-        tgt = cand_idx.gather(1, c)[:, 0]
-        val = w.gather(1, c)[:, 0]
-        has = cand.any(dim=1) & act
+        c = lex_argmax(w, draws.tie, mask=cand).long()[..., None]
+        tgt = cand_idx.gather(-1, c)[..., 0]
+        val = w.gather(-1, c)[..., 0]
+        has = cand.any(dim=-1) & act
         prio = (-val,)
     elif variant == "priority":
-        rel = _relation_rows(consts.rack_of, rows)              # [S, M]
-        nonempty = (Q > 0)[None, :]
-        own_has = Q[rows] > 0
+        rel = _relation_rows(consts.rack_of, rows)              # [N, S, M]
+        nonempty = (Q > 0)[:, None, :]
+        own_has = Q.gather(-1, rows) > 0
         if speed is not None:
-            nonempty = nonempty & (speed[rows].gather(1, rel) > 0)
-            own_has = own_has & (speed[rows, LOCAL] > 0)
+            nonempty = nonempty & (sp_rows.gather(-1, rel) > 0)
+            own_has = own_has & (sp_rows[..., LOCAL] > 0)
         rack_set = (rel == RACK) & nonempty
         glob_set = (rel == REMOTE) & nonempty
-        wq = qf[None, :].expand(S, M)
+        wq = qf[:, None, :].expand(N, S, M)
         rack_tgt = lex_argmax(wq, draws.tie, mask=rack_set).long()
         glob_tgt = lex_argmax(wq, draws.tie, mask=glob_set).long()
-        rack_any = rack_set.any(dim=1)
-        glob_any = glob_set.any(dim=1)
+        rack_any = rack_set.any(dim=-1)
+        glob_any = glob_set.any(dim=-1)
         tgt = torch.where(own_has, rows,
                           torch.where(rack_any, rack_tgt, glob_tgt))
         has = (own_has | rack_any | glob_any) & act
         class_rank = torch.where(own_has, 0.0, torch.where(rack_any, 1.0, 2.0))
-        prio = (class_rank, -qf[tgt])
+        prio = (class_rank, -qf.gather(-1, tgt))
     else:
         raise ValueError(variant)
 
     granted = _grant_conflicts(tgt, prio, has, Q, draws.grant)
-    Q = Q.index_add(0, tgt, -granted.to(torch.int32))
+    Q = Q.scatter_add(-1, tgt, -granted.to(torch.int32))
     # locality class of (server rows[s], queue tgt[s]): pairwise, O(S)
     rack_of = consts.rack_of
     start_cls = torch.where(rows == tgt, LOCAL,
                             torch.where(rack_of[rows] == rack_of[tgt],
                                         RACK, REMOTE))
-    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0], scen,
-                      draws.size_e)
+    work = _task_work(draws.dur.gather(-1, start_cls[..., None])[..., 0],
+                      scen, draws.size_e)
     start_cls32 = start_cls.to(torch.int32)
     if S == M:
         # rows == arange(M): the per-row scatters are identity placements
@@ -818,40 +988,49 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         rem = torch.where(granted, work, rem)
         cls = torch.where(granted, start_cls32, cls)
     else:
-        busy = busy.index_copy(0, rows, busy[rows] | granted)
-        rem = rem.index_copy(0, rows, torch.where(granted, work, rem[rows]))
-        cls = cls.index_copy(0, rows, torch.where(granted, start_cls32,
-                                                  cls[rows]))
-    starts = _class_hits(start_cls, granted).sum(dim=0).to(_F)
-    return (Q, busy, rem, cls, starts, has.sum().to(_F), rows, tgt, granted)
+        busy = busy.scatter(-1, rows, busy.gather(-1, rows) | granted)
+        rem = rem.scatter(-1, rows, torch.where(granted, work,
+                                                rem.gather(-1, rows)))
+        cls = cls.scatter(-1, rows, torch.where(granted, start_cls32,
+                                                cls.gather(-1, rows)))
+    starts = _class_hits(start_cls, granted).sum(dim=-2).to(_F)
+    return (Q, busy, rem, cls, starts, has.sum(dim=-1).to(_F), rows, tgt,
+            granted)
 
 
 def _jsq_route_sequential(draws: SQDraws, Q, mask):
-    """Per-arrival join-the-shortest-local-queue, random ties, each arrival
-    seeing the previous one's commit.  Routes up to the last valid arrival
-    (the rest commit nothing): reads the arrival count on the host."""
-    n = int(mask.sum())
+    """Per-arrival join-the-shortest-local-queue in every cell, random
+    ties, each arrival seeing the previous one's commit.  Routes up to the
+    largest arrival count of any cell (the rest commit nothing): reads the
+    arrival counts on the host, once a slot."""
+    n = int(mask.sum(dim=-1).max()) if mask.numel() else 0
+    cells = torch.arange(Q.shape[0], device=Q.device)
     Q = Q.clone()
     for b in range(n):
-        s = route_jsq_local(draws.route[b], Q, draws.locals_[b])
-        Q.index_put_((s.to(torch.int64),), mask[b].to(torch.int32),
+        s = route_jsq_local(draws.route[:, b], Q, draws.locals_[:, b])
+        Q.index_put_((cells, s.to(torch.int64)), mask[:, b].to(torch.int32),
                      accumulate=True)
     return Q
 
 
+@_one_cell_too(_one_state)
 def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
              cluster: Cluster, cfg: SimConfig, consts: StepConsts,
              variant: str, pod: Optional[PodSpec], a_max: int, measure: bool,
              in_half2: bool, speed: Optional[torch.Tensor] = None,
-             scen: Optional[ScenarioData] = None):
-    """One slot of the SQ family: completions -> scheduling -> arrivals and
-    routing -> accumulators (``speed`` and ``scen`` as in ``_bp_step``).
-    Batched routing is one pod ``route_commit`` launch with unit rates on
-    every fleet, as in the reference (JSQ routing is workload-free): Q
-    embedded in column 0 of an [M, 3] queue, the replica triples as
-    candidates of class 0, all valid (ties by replica slot)."""
-    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
-                                             state.cls)
+             scen=None):
+    """One slot of the SQ family in every cell: completions -> scheduling
+    -> arrivals and routing -> accumulators (cells, ``speed`` and ``scen``
+    as in ``_bp_step``).  Batched routing is one pod ``route_commit``
+    launch for all cells with unit rates on every fleet, as in the
+    reference (JSQ routing is workload-free): Q embedded in column 0 of an
+    [N, M, 3] queue, the replica triples as candidates of class 0, all
+    valid (ties by replica slot; the class and valid operands shared by
+    every cell)."""
+    busy, rem, completed = _progress_service(
+        state.busy, state.rem,
+        None if speed is None else speed.expand(state.Q.shape[0], -1, -1),
+        state.cls)
     Q, busy, rem, cls_serv, starts, n_sched, *_ = _sq_schedule(
         draws, cluster, state.Q, busy, rem, state.cls, consts=consts,
         S=min(cfg.s_max, cluster.M), variant=variant, pod=pod, speed=speed,
@@ -861,17 +1040,17 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
         Q = _jsq_route_sequential(draws, Q, mask)
     else:
         Q3, _W, _sel, _scls, _val = route_commit(
-            torch.nn.functional.pad(Q[:, None], (0, 2)), mask,
+            torch.nn.functional.pad(Q[..., None], (0, 2)), mask,
             consts.unit_inv, cand_idx=draws.locals_,
             cand_cls=consts.zero_cls, cand_valid=consts.one_valid)
-        Q = Q3[:, 0]
+        Q = Q3[..., 0]
 
-    busy_n = busy.sum().to(_F)
-    N = Q.sum().to(_F) + busy_n
-    arr = mask.sum().to(_F)
-    sums = _acc(sums, in_half2=in_half2, N=N, arr=arr, clipped=clipped,
-                comp=completed.sum().to(_F), starts=starts,
-                routed=starts.new_zeros(3), busy_n=busy_n, routes=arr,
+    busy_n = busy.sum(dim=-1).to(_F)
+    Ns = Q.sum(dim=-1).to(_F) + busy_n
+    arr = mask.sum(dim=-1).to(_F)
+    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
+                comp=completed.sum(dim=-1).to(_F), starts=starts,
+                routed=torch.zeros_like(starts), busy_n=busy_n, routes=arr,
                 scheds=n_sched, measure=measure)
     return SQState(Q, busy, rem, cls_serv), sums
 
@@ -881,50 +1060,55 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
 # ---------------------------------------------------------------------------
 
 
+@_one_cell_too(_one_state)
 def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
                cluster: Cluster, cfg: SimConfig, consts: StepConsts,
                a_max: int, measure: bool, in_half2: bool,
-               speed: Optional[torch.Tensor] = None,
-               scen: Optional[ScenarioData] = None):
-    """One slot of FCFS: up to G = min(s_max, M) idle servers, in the
-    random order of ``draws.rank``, each grab the head task; the grabbed
-    task's replicas are sampled at dequeue (iid of everything else, so the
-    law is the same).  With ``speed``, a server with every tier down is not
-    idle, and one whose tier for the task's class is down leaves it queued.
-    Launches no kernel."""
+               speed: Optional[torch.Tensor] = None, scen=None):
+    """One slot of FCFS in every cell: up to G = min(s_max, M) idle
+    servers, in the random order of ``draws.rank``, each grab the head
+    task; the grabbed task's replicas are sampled at dequeue (iid of
+    everything else, so the law is the same).  With ``speed``, a server
+    with every tier down is not idle, and one whose tier for the task's
+    class is down leaves it queued.  Launches no kernel."""
     G = min(cfg.s_max, cluster.M)
+    N = state.busy.shape[0]
+    if speed is not None:
+        speed = speed.expand(N, -1, -1)
     busy, rem, completed = _progress_service(state.busy, state.rem, speed,
                                              state.cls)
-    idle = ~busy if speed is None else ~busy & (speed > 0).any(dim=1)
+    idle = ~busy if speed is None else ~busy & (speed > 0).any(dim=-1)
     r = torch.where(idle, draws.rank, _INF)
-    rows = torch.argsort(r, stable=True)[:G]
-    locals_g = draws.locals_.to(torch.int64)                  # [G, n_rep]
+    rows = torch.argsort(r, dim=-1, stable=True)[:, :G]         # [N, G]
+    locals_g = draws.locals_.to(torch.int64)                  # [N, G, n_rep]
     rack_of = consts.rack_of
-    is_local = (locals_g == rows[:, None]).any(dim=1)
-    in_rack = (rack_of[locals_g] == rack_of[rows][:, None]).any(dim=1)
+    is_local = (locals_g == rows[..., None]).any(dim=-1)
+    in_rack = (rack_of[locals_g] == rack_of[rows][..., None]).any(dim=-1)
     start_cls = torch.where(is_local, LOCAL, torch.where(in_rack, RACK, REMOTE))
-    grant = idle[rows] & (torch.arange(G, device=rows.device) < state.C)
+    grant = idle.gather(-1, rows) & (
+        torch.arange(G, device=rows.device) < state.C[:, None])
     if speed is not None:
-        grant = grant & (speed[rows].gather(1, start_cls[:, None])[:, 0] > 0)
-    work = _task_work(draws.dur.gather(1, start_cls[:, None])[:, 0], scen,
+        grant = grant & (_rows_of(speed, rows).gather(
+            -1, start_cls[..., None])[..., 0] > 0)
+    work = _task_work(draws.dur.gather(-1, start_cls[..., None])[..., 0], scen,
                       draws.size_e)
-    C = state.C - grant.sum().to(torch.int32)
-    busy = busy.index_copy(0, rows, busy[rows] | grant)
-    rem = rem.index_copy(0, rows, torch.where(grant, work, rem[rows]))
-    cls = state.cls.index_copy(0, rows, torch.where(
-        grant, start_cls.to(torch.int32), state.cls[rows]))
-    starts = _class_hits(start_cls, grant).sum(dim=0).to(_F)
+    C = state.C - grant.sum(dim=-1).to(torch.int32)
+    busy = busy.scatter(-1, rows, busy.gather(-1, rows) | grant)
+    rem = rem.scatter(-1, rows, torch.where(grant, work, rem.gather(-1, rows)))
+    cls = state.cls.scatter(-1, rows, torch.where(
+        grant, start_cls.to(torch.int32), state.cls.gather(-1, rows)))
+    starts = _class_hits(start_cls, grant).sum(dim=-2).to(_F)
 
     mask, clipped = _arrival_batch(draws, a_max)
-    C = C + mask.sum().to(torch.int32)
+    C = C + mask.sum(dim=-1).to(torch.int32)
 
-    busy_n = busy.sum().to(_F)
-    N = C.to(_F) + busy_n
-    sums = _acc(sums, in_half2=in_half2, N=N, arr=mask.sum().to(_F),
-                clipped=clipped, comp=completed.sum().to(_F), starts=starts,
-                routed=starts.new_zeros(3), busy_n=busy_n,
-                routes=starts.new_zeros(()), scheds=grant.sum().to(_F),
-                measure=measure)
+    busy_n = busy.sum(dim=-1).to(_F)
+    Ns = C.to(_F) + busy_n
+    zero = torch.zeros_like(busy_n)
+    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=mask.sum(dim=-1).to(_F),
+                clipped=clipped, comp=completed.sum(dim=-1).to(_F),
+                starts=starts, routed=torch.zeros_like(starts), busy_n=busy_n,
+                routes=zero, scheds=grant.sum(dim=-1).to(_F), measure=measure)
     return FCFSState(C, busy, rem, cls), sums
 
 
@@ -984,21 +1168,28 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
 
 def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
          rates: Rates, cfg: SimConfig, pod: Optional[PodSpec],
-         a_max: int, scen: Optional[ScenarioData] = None) -> RawSums:
-    """The T-slot loop; returns the raw accumulators.  On a heterogeneous
-    realization each slot reads its speed from ``speed_at(scen, t)`` (and
-    the BP family its [M, 3] inverse rates), all on the device."""
+         a_max: int, cells: int, scen: Optional[ScenarioData] = None,
+         homo: bool = True, size=None) -> RawSums:
+    """The T-slot loop over ``cells`` cells; returns the raw accumulators,
+    each with a leading [cells].  ``draw(t)`` gives slot t's draws of every
+    cell.  ``scen`` is one ScenarioData all cells share, or a stacked one
+    of S scenarios whose row s the cells s * cells / S .. (s + 1) * cells /
+    S - 1 read.  Unless ``homo``, each slot reads its speed from
+    ``speed_at(scen, t)`` (and the BP family its [M, 3] or [cells, M, 3]
+    inverse rates), all on the device.  ``size``: the cells' size law
+    (``_task_work``)."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
-    homo = _rates_homogeneous(scen)
     rate_vec = rates.as_array(dev)
-    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=scen)
+    M = cluster.M
+    stacked = scen is not None and scen.base_speed.ndim == 2
+    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=size)
     if family == "bp":
         cand_cls = None
         if pod is not None:
             cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
                                              dev).expand(a_max, -1).contiguous()
-        state = BPState.zero(cluster.M, dev)
+        state = BPState.zero(M, dev, cells)
         step = functools.partial(
             _bp_step, pod=pod,
             class_tiebreak=(algo != "balanced_pandas_randomtie"),
@@ -1006,25 +1197,68 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
     else:
         consts = step_consts(cluster, rates, pod, a_max, dev)
         if family == "sq":
-            state = SQState.zero(cluster.M, dev)
+            state = SQState.zero(M, dev, cells)
             step = functools.partial(
                 _sq_step, consts=consts, pod=pod,
                 variant="priority" if algo == "jsq_priority" else "maxweight",
                 **kw)
         else:
-            state = FCFSState.zero(cluster.M, dev)
+            state = FCFSState.zero(M, dev, cells)
             step = functools.partial(_fcfs_step, consts=consts, **kw)
-    sums = RawSums.zero(dev)
+    sums = RawSums.zero(dev, cells)
     slot = {"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp" else {}
     for t in range(cfg.T):
         if not homo:
             speed = speed_at(scen, t)
+            if stacked:     # one row a scenario -> one row a cell
+                S = speed.shape[0]
+                speed = speed[:, None].expand(S, cells // S, M, 3).reshape(
+                    cells, M, 3)
             slot["speed"] = speed
             if family == "bp":      # inv_rate_matrix(rates, speed)
-                slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec[None, :])
+                slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
         state, sums = step(state, sums, draw(t), measure=t >= cfg.warmup,
                            in_half2=t >= half2_from, **slot)
     return sums
+
+
+def _cell_draws(gen: torch.Generator, cluster: Cluster, rates: Rates,
+                cfg: SimConfig, pod: Optional[PodSpec], a_max: int,
+                lam: float, scen: ScenarioData, family: str) -> TorchDraws:
+    """One cell's ``TorchDraws`` at arrival rate ``lam`` (tasks a slot at
+    the scenario's mean) on the scenario's device."""
+    dev = scen.base_speed.device
+    lam_t = torch.tensor(lam, dtype=_F, device=dev) * scen.lam_shape
+    return TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t, family, scen)
+
+
+def _run_cells(algo: str, cluster: Cluster, rates: Rates, cfg: SimConfig,
+               pod: Optional[PodSpec], a_max: int, scen: ScenarioData,
+               lam, n_seeds: int, seed0: int, homo: bool) -> RawSums:
+    """Every cell (s, k, l) of ``lam`` [S][L] (arrival rates, Python
+    floats) x ``n_seeds`` seeds in one slot loop, cell index (s * n_seeds
+    + k) * L + l.  ``scen``: one ScenarioData (S = 1) or a stacked one of S
+    rows.  Seed k draws from a generator seeded ``seed0 + k`` on the
+    scenario's device.  Returns RawSums with a leading [S * n_seeds * L]."""
+    dev = scen.base_speed.device
+    rows = ([scenario_row(scen, s) for s in range(len(lam))]
+            if scen.base_speed.ndim == 2 else [scen])
+    family = _family(algo)
+    sources, per_cell = [], []
+    for row, lam_row in zip(rows, lam):
+        for k in range(n_seeds):
+            for l in lam_row:
+                gen = torch.Generator(device=dev).manual_seed(seed0 + k)
+                sources.append(_cell_draws(gen, cluster, rates, cfg, pod, a_max,
+                                           float(l), row, family))
+                per_cell.append(row)
+    size = None
+    if any(src.sized for src in sources):
+        col = lambda name: torch.stack([getattr(r, name) for r in per_cell])[:, None]
+        size = SizeLaw(col("size_mu"), col("size_sigma"))
+    return _run(GridDraws(sources), dev, algo=algo, cluster=cluster,
+                rates=rates, cfg=cfg, pod=pod, a_max=a_max,
+                cells=len(sources), scen=scen, homo=homo, size=size)
 
 
 def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
@@ -1032,7 +1266,7 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
              pod: Optional[PodSpec] = None, scenario=None, pad=None,
              a_max: Optional[int] = None, *, device=None,
              draws: Optional[DrawSource] = None) -> SimResult:
-    """Run one simulation and return derived metrics.
+    """Run one simulation and return derived metrics: a grid of one cell.
 
     load: fraction of the scenario's capacity edge (lambda = load * M *
     alpha on the uniform scenario).  key: an int seed or a
@@ -1043,7 +1277,8 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
     scenario's peak intensity.  device: None runs on the CUDA card (and
     raises without one); pass "cpu" to run on the CPU.  draws: a draw
     source replacing the default ``TorchDraws``: a callable from slot index
-    to the family's draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``)."""
+    to the family's draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``) of
+    the one cell, unbatched."""
     family = _family(algo)
     dev = resolve_device(device)
     scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
@@ -1054,12 +1289,110 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
     if draws is None:
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(key))
-        lam_t = torch.tensor(lam, dtype=_F, device=dev) * scen.lam_shape
-        draws = TorchDraws(gen, cluster, rates, cfg, pod, a_max, lam_t, family,
-                           scen)
-    sums = _run(draws, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
-                pod=pod, a_max=a_max, scen=scen)
-    return summarize(sums, algo, cluster, rates, pod)
+        source = GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,
+                                        lam, scen, family)])
+    else:
+        source = lambda t: _lift(draws(t))
+    sums = _run(source, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
+                pod=pod, a_max=a_max, cells=1, scen=scen,
+                homo=_rates_homogeneous(scen), size=scen)
+    return summarize(_drop(sums), algo, cluster, rates, pod)
+
+
+def simulate_grid(algo: str, cluster: Cluster, rates: Rates, loads,
+                  n_seeds: int, cfg: SimConfig = SimConfig(),
+                  pod: Optional[PodSpec] = None, seed0: int = 0,
+                  scenario=None, pad=None, a_max: Optional[int] = None, *,
+                  device=None) -> SimResult:
+    """Loads x seeds of one scenario in one slot loop: n_seeds x len(loads)
+    cells, every slot one ``route_commit`` launch for all of them.
+    Returns a SimResult whose leaves lead by [n_seeds, n_loads].  Cell (k,
+    l) draws from a generator seeded ``seed0 + k`` and equals
+    ``simulate(algo, ..., loads[l], seed0 + k, ..., a_max=<this grid's>)``
+    bit for bit.  pad / a_max as in ``simulate`` (a_max None: sized from
+    the largest load); device as in ``simulate``."""
+    dev = resolve_device(device)
+    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
+    lam = [float(l) * lam_cap for l in loads]
+    pod = _pod_for(algo, pod)
+    if a_max is None:
+        a_max = cfg.resolve_a_max(float(np.max(np.asarray(lam, np.float32))),
+                                  float(scen.lam_shape.max()))
+    sums = _run_cells(algo, cluster, rates, cfg, pod, a_max, scen, [lam],
+                      n_seeds, seed0, homo=_rates_homogeneous(scen))
+    shape = (n_seeds, len(lam))
+    return summarize(RawSums(*(x.reshape(shape + x.shape[1:]) for x in sums)),
+                     algo, cluster, rates, pod)
+
+
+def sweep_grid(cluster: Cluster, rates: Rates, cfg: SimConfig, loads,
+               scenarios=None, pad=None, a_max: Optional[int] = None, *,
+               device=None):
+    """The grid ``simulate_sweep`` runs: realizes and stacks the scenarios
+    (``scenarios.stack_scenarios``) and resolves the grid's shared
+    arrival-buffer width.  Returns ``(names, stacked ScenarioData with
+    leading [S], lam [S, L] float32 absolute arrival rates, a_max)``.
+    ``scenarios``: registered names and/or Scenario objects (default: the
+    whole registry); ``a_max`` defaults to the largest ``resolve_a_max``
+    over the (scenario, load) cells, each sized from its scenario's peak
+    slot intensity.  device as in ``simulate``."""
+    dev = resolve_device(device)
+    names = list(scenarios) if scenarios is not None else list(scenario_names())
+    stacked, caps = stack_scenarios(names, cluster, rates, cfg.T, pad,
+                                    device=dev)
+    loads = [float(l) for l in loads]
+    lam = caps[:, None] * np.asarray(loads)[None, :]
+    if a_max is None:
+        peaks = host(stacked.lam_shape).max(axis=1)
+        a_max = max(cfg.resolve_a_max(float(c) * max(loads), float(p))
+                    for c, p in zip(caps, peaks))
+    labels = [getattr(n, "name", n) for n in names]
+    return labels, stacked, torch.tensor(lam, dtype=_F, device=dev), int(a_max)
+
+
+def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
+                   n_seeds: int, cfg: SimConfig = SimConfig(),
+                   pod: Optional[PodSpec] = None, seed0: int = 0,
+                   scenarios=None, pad=None, a_max: Optional[int] = None,
+                   telemetry=None, devices=None, *, device=None):
+    """Scenarios x seeds x loads in one slot loop (``sweep_grid``): every
+    slot one ``route_commit`` launch for all S * n_seeds * L cells, each
+    cell on its scenario's [M, 3] rates (the sweep never takes the
+    homogeneous path, as in the reference).
+
+    Seed k of every (scenario, load) cell draws from a generator seeded
+    ``seed0 + k``, as ``simulate_grid`` does, so every cell equals the
+    looped ``simulate_grid(algo, ..., scenario=name, pad=pad,
+    a_max=<this sweep's>)`` cell bit for bit.  ``devices``: torch devices
+    to split the scenario axis over, in contiguous chunks run one after
+    another and joined in order (default: ``device``, as in ``simulate``).
+    ``telemetry`` is not ported yet and must be None.
+
+    Returns ``(names, SimResult, None)``, every SimResult leaf leading by
+    [n_scenarios, n_seeds, n_loads]."""
+    if telemetry is not None:
+        raise NotImplementedError("simulate_sweep: telemetry is not ported "
+                                  "yet (ROADMAP queue A, item 5)")
+    devs = [resolve_device(d) for d in devices] if devices is not None \
+        else [resolve_device(device)]
+    names, stacked, lam, a_max = sweep_grid(cluster, rates, cfg, loads,
+                                            scenarios, pad, a_max,
+                                            device=devs[0])
+    pod = _pod_for(algo, pod)
+    lam = lam.tolist()
+    S = len(lam)
+    parts = []
+    for d, idx in zip(devs, np.array_split(np.arange(S), min(len(devs), S))):
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        chunk = ScenarioData(*(None if x is None else x[lo:hi].to(d)
+                               for x in stacked))
+        sums = _run_cells(algo, cluster, rates, cfg, pod, a_max, chunk,
+                          lam[lo:hi], n_seeds, seed0, homo=False)
+        parts.append([x.to(devs[0]) for x in sums])
+    shape = (S, n_seeds, len(lam[0]))
+    sums = RawSums(*(torch.cat(xs).reshape(shape + xs[0].shape[1:])
+                     for xs in zip(*parts)))
+    return names, summarize(sums, algo, cluster, rates, pod), None
 
 
 def summarize(s: RawSums, algo: str, cluster: Cluster, rates: Rates,

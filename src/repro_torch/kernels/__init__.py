@@ -6,7 +6,8 @@ compare the kernels with, and ``LAUNCHES`` counts each kernel's launches
 (``MATRIX_LAUNCHES``: route_commit's at the per-server [M, 3] operand).
 
 ``route_commit`` (full and pod) routes and commits one arrival batch in
-sequence: it is the simulator's batched path.  The three snapshot kernels
+sequence, or one batch in each of N cells in one launch (one CTA a cell):
+it is the simulator's batched path.  The three snapshot kernels
 (``weighted_argmin``, ``pod_route``, ``queue_update``) route a whole batch
 against one workload snapshot and then commit it: they serve the paper's
 complexity path, O(M) against O(d) work per decision (``chip_smoke.py``

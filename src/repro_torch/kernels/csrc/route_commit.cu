@@ -76,6 +76,15 @@
 //     staged chunk by chunk; slots beyond what fits of one row are built
 //     from device memory in the step.
 
+// Cells: a launch routes the batches of N independent cells (grid cells of
+// the simulator), one CTA a cell (gridDim.x = N).  blockIdx.x selects the
+// cell's operands by their cell strides; an operand every cell shares (the
+// [3] or [M, 3] rates, BP-Pod's candidate classes, batched JSQ's all-valid
+// mask) has a cell stride of 0.  Inside a CTA the work is the one-cell
+// kernel's, unchanged; the outputs of cell n start at n * (their one-cell
+// size).  At M = 5000 the full variant is one CTA of 1024 threads an SM, so
+// 132 cells are one wave and more cells run in further waves.
+//
 // Parity: every product and sum is __fmul_rn / __fadd_rn (no FMA
 // contraction) in the reference's order, and W0 and dW are kept apart
 // (score = (W0 + dW) * inv, W_new = W0 + dW), so exact lattice ties break
@@ -147,7 +156,24 @@ struct FullArgs {
   int* __restrict__ sel;
   int* __restrict__ selcls;
   float* __restrict__ val;
+  long long sQ, sValid, sInv, sCls, sPrio;   // cell strides (elements)
 };
+
+// The operands of this CTA's cell.
+__device__ __forceinline__ FullArgs cell_of(FullArgs a) {
+  const long long n = blockIdx.x;
+  a.Q += n * a.sQ;
+  a.valid += n * a.sValid;
+  a.inv += n * a.sInv;
+  a.cls += n * a.sCls;
+  if (a.prio) a.prio += n * a.sPrio;
+  a.Qn += n * 3 * a.M;
+  a.Wn += n * a.M;
+  a.sel += n * a.B;
+  a.selcls += n * a.B;
+  a.val += n * a.B;
+  return a;
+}
 
 // Rank lanes of the full variant: (cls << 30) | (prio << 15) | m orders as
 // the reference's (cls*M + prio)*M + m for M <= 32768 and cls <= 3, and
@@ -177,7 +203,8 @@ __device__ __forceinline__ float score_rate(const FullArgs& a, const float* hr, 
 }
 
 template <bool kHomo>
-__global__ void __launch_bounds__(1024, 1) route_commit_full_kernel(FullArgs a) {
+__global__ void __launch_bounds__(1024, 1) route_commit_full_kernel(FullArgs cells) {
+  const FullArgs a = cell_of(cells);
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* slots = reinterpret_cast<uint2*>(smem);          // [2][32] by parity
   float* hr = reinterpret_cast<float*>(smem + 512);       // [4] class -> rate
@@ -376,7 +403,24 @@ struct PodArgs {
   int* __restrict__ sel;
   int* __restrict__ selcls;
   float* __restrict__ val;
+  long long sQ, sValid, sInv, sIdx, sCls, sCandValid;   // cell strides
 };
+
+__device__ __forceinline__ PodArgs cell_of(PodArgs a) {
+  const long long n = blockIdx.x;
+  a.Q += n * a.sQ;
+  a.valid += n * a.sValid;
+  a.inv += n * a.sInv;
+  a.cand_idx += n * a.sIdx;
+  a.cand_cls += n * a.sCls;
+  a.cand_valid += n * a.sCandValid;
+  a.Qn += n * 3 * a.M;
+  a.Wn += n * a.M;
+  a.sel += n * a.B;
+  a.selcls += n * a.B;
+  a.val += n * a.B;
+  return a;
+}
 
 // Slot (b, c) as the chain reads it: x = server (bit 31: slot invalid),
 // y = class, z = the server's W0, w = finite rate (sign bit: scores +inf).
@@ -491,7 +535,8 @@ __device__ void pod_chain(const PodArgs& a, const int4* st, float* dw, int r0,
   }
 }
 
-__global__ void __launch_bounds__(1024, 1) route_commit_pod_kernel(PodArgs a) {
+__global__ void __launch_bounds__(1024, 1) route_commit_pod_kernel(PodArgs cells) {
+  const PodArgs a = cell_of(cells);
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* red = reinterpret_cast<uint32_t*>(smem);                 // [32]
   float* dw = reinterpret_cast<float*>(smem + 128);                  // [M]
@@ -567,11 +612,14 @@ int set_smem(const void* fn, size_t bytes) {
 
 extern "C" {
 
+// cell_stride: the cell strides (elements) of Q, valid, inv, cls, prio;
+// `cells` CTAs, one a cell.
 int route_commit_full(const int* Q, const uint8_t* valid, const float* inv,
                       int inv_stride, const int* cls, const int* prio, int M,
                       int B, int* Qn, float* Wn, int* sel, int* selcls,
-                      float* val, int threads, cudaStream_t stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 || M > 32768)
+                      float* val, int threads, int cells,
+                      const long long* cell_stride, cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 || M > 32768 || cells < 1)
     return cudaErrorInvalidValue;
   const int spill = M > threads ? M - threads : 0;
   const size_t smem = 2 * 32 * sizeof(uint2) + sizeof(float) * (4 + threads) +
@@ -581,18 +629,22 @@ int route_commit_full(const int* Q, const uint8_t* valid, const float* inv,
                               : reinterpret_cast<const void*>(route_commit_full_kernel<true>);
   int err = set_smem(fn, smem);
   if (err) return err;
-  FullArgs a{Q, valid, inv, cls, prio, M, B, Qn, Wn, sel, selcls, val};
-  if (inv_stride) route_commit_full_kernel<false><<<1, threads, smem, stream>>>(a);
-  else route_commit_full_kernel<true><<<1, threads, smem, stream>>>(a);
+  const long long* s = cell_stride;
+  FullArgs a{Q,  valid, inv, cls,  prio, M,    B,    Qn,   Wn,  sel,
+             selcls, val, s[0], s[1], s[2], s[3], s[4]};
+  if (inv_stride) route_commit_full_kernel<false><<<cells, threads, smem, stream>>>(a);
+  else route_commit_full_kernel<true><<<cells, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// cell_stride: the cell strides of Q, valid, inv, cand_idx, cand_cls,
+// cand_valid.
 int route_commit_pod(const int* Q, const uint8_t* valid, const float* inv,
                      int inv_stride, const int* cand_idx, const int* cand_cls,
                      const uint8_t* cand_valid, int M, int B, int C, int* Qn,
                      float* Wn, int* sel, int* selcls, float* val, int threads,
-                     cudaStream_t stream) {
-  if (threads < 64 || threads > 1024 || threads % 32 || C < 1)
+                     int cells, const long long* cell_stride, cudaStream_t stream) {
+  if (threads < 64 || threads > 1024 || threads % 32 || C < 1 || cells < 1)
     return cudaErrorInvalidValue;
   const size_t fixed = 128 + ((4 * static_cast<size_t>(M) + 15) & ~static_cast<size_t>(15));
   if (fixed + 16 > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
@@ -602,9 +654,11 @@ int route_commit_pod(const int* Q, const uint8_t* valid, const float* inv,
   const size_t smem = fixed + 16 * static_cast<size_t>(R) * Cs;
   int err = set_smem(reinterpret_cast<const void*>(route_commit_pod_kernel), smem);
   if (err) return err;
-  PodArgs a{Q, valid, inv, inv_stride, cand_idx, cand_cls, cand_valid, M, B, C,
-            Cs, R > 0 ? R : 1, Qn, Wn, sel, selcls, val};
-  route_commit_pod_kernel<<<1, threads, smem, stream>>>(a);
+  const long long* s = cell_stride;
+  PodArgs a{Q,      valid, inv, inv_stride, cand_idx, cand_cls, cand_valid, M,
+            B,      C,     Cs,  R > 0 ? R : 1, Qn,   Wn,       sel,        selcls,
+            val,    s[0],  s[1], s[2],      s[3],     s[4],     s[5]};
+  route_commit_pod_kernel<<<cells, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

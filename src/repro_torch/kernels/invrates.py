@@ -71,11 +71,15 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_inv_rates(inv_rates: torch.Tensor, M: int, device) -> None:
-    """Check the ``[3]`` / ``[M, 3]`` float32 operand a kernel reads raw."""
-    if tuple(inv_rates.shape) not in ((CLASSES,), (M, CLASSES)):
+def check_inv_rates(inv_rates: torch.Tensor, M: int, device,
+                    cells: int | None = None) -> None:
+    """Check the ``[3]`` / ``[M, 3]`` float32 operand a kernel reads raw;
+    with a count of ``cells``, also one ``[cells, M, 3]`` row a cell."""
+    shapes = ((CLASSES,), (M, CLASSES)) + (
+        () if cells is None else ((cells, M, CLASSES),))
+    if tuple(inv_rates.shape) not in shapes:
         raise ValueError(f"inv_rates has shape {tuple(inv_rates.shape)}, "
-                         f"expected (3,) or ({M}, 3)")
+                         f"expected one of {shapes}")
     check(inv_rates, "inv_rates", torch.float32, tuple(inv_rates.shape), device)
 
 

@@ -114,16 +114,46 @@ def workload(Q: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
     """W[m] = (Q0*i0 + Q1*i1) + Q2*i2 in float32, in that order (the
     kernel pins the same order so exact ties break alike)."""
     x = Q.to(torch.float32) * finite
-    return (x[:, 0] + x[:, 1]) + x[:, 2]
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
+# one-cell rank of each route_commit operand that a cell axis may lead
+_CELL_RANK = {"inv_rates": 2, "cls": 2, "prio": 1, "cand_idx": 2,
+              "cand_cls": 2, "cand_valid": 2}
 
 
 def route_commit_ref(Q: torch.Tensor, valid: torch.Tensor,
-                     inv_rates: torch.Tensor, *,
-                     cls: Optional[torch.Tensor] = None,
-                     prio: Optional[torch.Tensor] = None,
-                     cand_idx: Optional[torch.Tensor] = None,
-                     cand_cls: Optional[torch.Tensor] = None,
-                     cand_valid: Optional[torch.Tensor] = None):
+                     inv_rates: torch.Tensor, **kw):
+    """``route_commit_cell`` of one batch (Q [M, 3]), or of one batch in
+    each of N cells (Q [N, M, 3], valid [N, B]): a loop over the cells,
+    each operand taken per cell when it has the leading N (inv_rates [N, M,
+    3], cls [N, B, M], prio [N, M], cand_* [N, B, C]) and shared by every
+    cell when it has not.  Returns the five outputs, each with a leading
+    [N] when Q has one."""
+    if Q.ndim != 3:
+        return route_commit_cell(Q, valid, inv_rates, **kw)
+    kw["inv_rates"] = inv_rates
+    N = Q.shape[0]
+    if valid.ndim != 2 or valid.shape[0] != N:
+        raise ValueError(f"valid has shape {tuple(valid.shape)}, expected ({N}, B)")
+    for name, t in kw.items():
+        if t is not None and t.ndim > _CELL_RANK[name] + 1 or (
+                t is not None and t.ndim > _CELL_RANK[name] and t.shape[0] != N):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}: not one "
+                             f"operand a cell for {N} cells, nor one for all")
+    cell = lambda n: {k: t[n] if t is not None and t.ndim > _CELL_RANK[k] else t
+                      for k, t in kw.items()}
+    outs = [route_commit_cell(Q[n], valid[n], **cell(n)) for n in range(N)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def route_commit_cell(Q: torch.Tensor, valid: torch.Tensor,
+                      inv_rates: torch.Tensor, *,
+                      cls: Optional[torch.Tensor] = None,
+                      prio: Optional[torch.Tensor] = None,
+                      cand_idx: Optional[torch.Tensor] = None,
+                      cand_cls: Optional[torch.Tensor] = None,
+                      cand_valid: Optional[torch.Tensor] = None):
     """Sequential-commit routing of one arrival batch.
 
     Arrival b scores against ``W0 + dW``, where ``dW`` holds the commits of

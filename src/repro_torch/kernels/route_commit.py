@@ -14,9 +14,15 @@ Two variants share the wrapper:
   pod   (``cand_idx``/``cand_cls``/``cand_valid``: [B, C]) — power-of-d
         argmin over an explicit candidate list.
 
-``invrates.LAUNCHES`` counts kernel launches per variant (and
-``MATRIX_LAUNCHES`` those at the [M, 3] operand); the CPU path and the
-plain version never touch them.
+A leading cell axis routes N independent batches in one launch (one CTA a
+cell): ``Q`` [N, M, 3] and ``valid`` [N, B], and every other operand either
+per cell (with the leading N) or shared by all cells (without it, read at a
+cell stride of 0), as the grid simulator shares the rates, BP-Pod's
+candidate classes and batched JSQ's all-valid mask.
+
+``invrates.LAUNCHES`` counts kernel launches per variant, one a call however
+many cells it routes (and ``MATRIX_LAUNCHES`` those at an [M, 3] operand);
+the CPU path and the plain version never touch them.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ _SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_STRIDES = ctypes.c_longlong * 6
 
 
 @functools.cache
@@ -45,10 +52,10 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("route_commit")
     lib.route_commit_full.argtypes = [_P, _P, _P, _I, _P, _P, _I, _I,
-                                      _P, _P, _P, _P, _P, _I, _P]
+                                      _P, _P, _P, _P, _P, _I, _I, _P, _P]
     lib.route_commit_full.restype = _I
     lib.route_commit_pod.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                     _I, _P, _P, _P, _P, _P, _I, _P]
+                                     _I, _P, _P, _P, _P, _P, _I, _I, _P, _P]
     lib.route_commit_pod.restype = _I
     return lib
 
@@ -60,15 +67,19 @@ def route_commit(Q: torch.Tensor, valid: torch.Tensor,
                  cand_idx: Optional[torch.Tensor] = None,
                  cand_cls: Optional[torch.Tensor] = None,
                  cand_valid: Optional[torch.Tensor] = None):
-    """Sequential-commit routing of one arrival batch.
+    """Sequential-commit routing of one arrival batch, or of one batch in
+    each of N cells.
 
     Q: [M, 3] int32; valid: [B] bool; inv_rates: [3] or [M, 3] float32
     (+inf = dead).  Exactly one of ``cls`` [B, M] int32 (+ optional
     ``prio`` [M] int32, a permutation of 0..M-1) or
     ``cand_idx``/``cand_cls`` [B, C] int32 with ``cand_valid`` [B, C] bool.
+    With a cell axis, Q is [N, M, 3] and valid [N, B]; inv_rates may also
+    be [N, M, 3], and every other operand [N, ...] or shared.
 
     Returns (Q_new [M, 3] int32, W_new [M] f32, sel [B] int32,
-    sel_cls [B] int32, val [B] f32), as ``ref.route_commit_ref``.
+    sel_cls [B] int32, val [B] f32), as ``ref.route_commit_ref``; with a
+    cell axis each with a leading [N].
     """
     if (cls is None) == (cand_idx is None):
         raise ValueError("pass cls OR cand_idx/cand_cls/cand_valid")
@@ -82,53 +93,76 @@ def route_commit(Q: torch.Tensor, valid: torch.Tensor,
                                 cand_valid=cand_valid)
 
     dev = Q.device
-    M = Q.shape[0]
-    B = valid.shape[0]
+    lead = tuple(Q.shape[:1]) if Q.ndim == 3 else ()
+    M = Q.shape[-2] if Q.ndim >= 2 else -1
+    B = valid.shape[-1] if valid.ndim else -1
     if not 0 < M <= _MAX_M or 8 * M > _SMEM_LIMIT:
         raise ValueError(f"route_commit kernel supports 0 < M <= {_MAX_M}")
-    check(Q, "Q", torch.int32, (M, 3), dev)
-    check(valid, "valid", torch.bool, (B,), dev)
-    check_inv_rates(inv_rates, M, dev)
+    if lead and lead[0] < 1:
+        raise ValueError("route_commit needs at least one cell")
+    check(Q, "Q", torch.int32, lead + (M, 3), dev)
+    check(valid, "valid", torch.bool, lead + (B,), dev)
+    check_inv_rates(inv_rates, M, dev, lead[0] if lead else None)
 
     if cls is not None:
-        check(cls, "cls", torch.int32, (B, M), dev)
+        _check_operand(cls, "cls", torch.int32, (B, M), lead, dev)
         if prio is not None:
-            check(prio, "prio", torch.int32, (M,), dev)
+            _check_operand(prio, "prio", torch.int32, (M,), lead, dev)
     else:
-        C = cand_idx.shape[1] if cand_idx.ndim == 2 else -1
-        check(cand_idx, "cand_idx", torch.int32, (B, C), dev)
-        check(cand_cls, "cand_cls", torch.int32, (B, C), dev)
-        check(cand_valid, "cand_valid", torch.bool, (B, C), dev)
-    outs = (torch.empty((M, 3), dtype=torch.int32, device=dev),
-            torch.empty(M, dtype=torch.float32, device=dev),
-            torch.empty(B, dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.float32, device=dev))
+        C = cand_idx.shape[-1] if cand_idx.ndim >= 2 else -1
+        _check_operand(cand_idx, "cand_idx", torch.int32, (B, C), lead, dev)
+        _check_operand(cand_cls, "cand_cls", torch.int32, (B, C), lead, dev)
+        _check_operand(cand_valid, "cand_valid", torch.bool, (B, C), lead, dev)
+    outs = (torch.empty(lead + (M, 3), dtype=torch.int32, device=dev),
+            torch.empty(lead + (M,), dtype=torch.float32, device=dev),
+            torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+            torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+            torch.empty(lead + (B,), dtype=torch.float32, device=dev))
     launch(Q, valid, inv_rates, outs, cls=cls, prio=prio, cand_idx=cand_idx,
            cand_cls=cand_cls, cand_valid=cand_valid)
     return outs
+
+
+def _check_operand(t: torch.Tensor, name: str, dtype, shape, lead, device) -> None:
+    """``check`` an operand that is per cell (``lead + shape``) or, with a
+    cell axis, shared by every cell (``shape``)."""
+    check(t, name, dtype, (lead if t.ndim > len(shape) else ()) + shape, device)
+
+
+def _cell_stride(t: Optional[torch.Tensor], rank: int) -> int:
+    """Elements between two cells' blocks of an operand of one-cell rank
+    ``rank``: 0 when every cell shares it."""
+    return t[0].numel() if t is not None and t.ndim > rank else 0
 
 
 def launch(Q, valid, inv_rates, outs, *, cls=None, prio=None,
            cand_idx=None, cand_cls=None, cand_valid=None) -> None:
     """Launch the kernel on the current stream into preallocated ``outs``
     (Q_new, W_new, sel, sel_cls, val), with no checks: ``route_commit``
-    validates and allocates, and timing harnesses call this directly."""
-    M, B = Q.shape[0], valid.shape[0]
+    validates and allocates, and timing harnesses call this directly.  A
+    Q with a leading cell axis launches one CTA a cell."""
+    cells = Q.shape[0] if Q.ndim == 3 else 1
+    M, B = Q.shape[-2], valid.shape[-1]
     stride = 0 if inv_rates.ndim == 1 else 3
+    strides = [_cell_stride(Q, 2), _cell_stride(valid, 1),
+               _cell_stride(inv_rates, 2)]
     stream = _P(torch.cuda.current_stream(Q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in outs]
     if cls is not None:
+        strides += [_cell_stride(cls, 2), _cell_stride(prio, 1)]
         err = _lib().route_commit_full(
             Q.data_ptr(), valid.data_ptr(), inv_rates.data_ptr(), stride,
             cls.data_ptr(), None if prio is None else prio.data_ptr(), M, B,
-            *ptrs, min(THREADS_FULL, -(-M // 32) * 32), stream)
+            *ptrs, min(THREADS_FULL, -(-M // 32) * 32), cells,
+            _STRIDES(*strides), stream)
         name = "route_commit_full"
     else:
+        strides += [_cell_stride(t, 2) for t in (cand_idx, cand_cls, cand_valid)]
         err = _lib().route_commit_pod(
             Q.data_ptr(), valid.data_ptr(), inv_rates.data_ptr(), stride,
             cand_idx.data_ptr(), cand_cls.data_ptr(), cand_valid.data_ptr(),
-            M, B, cand_idx.shape[1], *ptrs, THREADS_POD, stream)
+            M, B, cand_idx.shape[-1], *ptrs, THREADS_POD, cells,
+            _STRIDES(*strides), stream)
         name = "route_commit_pod"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -14,7 +14,8 @@ realization itself runs on the host in numpy, as in the reference, so the
 arrays are the reference's bit for bit, and the capacity edge ``lam_cap``
 is the reference's closed form or fluid LP (``capacity.py``, scipy).  The
 slot loop reads ``speed_at`` and ``sample_locals_scenario``.
-``stack_scenarios`` comes with the grid entry points (queue A, item 4).
+``stack_scenarios`` realizes many scenarios against one pad and stacks them
+on a leading axis, the input of ``core.simulate_sweep``.
 """
 from .spec import (
     COMPOSE_DEPTH,
@@ -45,7 +46,9 @@ from .build import (
     realize,
     sample_locals_scenario,
     scenario_from_numpy,
+    scenario_row,
     speed_at,
+    stack_scenarios,
     speed_trace,
     traffic_shape,
 )

@@ -17,8 +17,10 @@ slot's churn epoch choosing the popularity row).
 window, catalog and epoch arrays to registry-wide maxima and selects the
 placement law by data (``placement_on``), so every scenario shares one set
 of shapes; ``canonical_a_max`` gives one arrival-buffer width for a sweep.
-``stack_scenarios`` (the grid sweep's input) is not ported yet (ROADMAP
-queue A, item 4).
+``stack_scenarios`` realizes a list of scenarios against one pad and stacks
+them on a leading [S] axis: the grid sweep's input.  ``speed_at`` and
+``placement_epoch_at`` read a stacked ScenarioData too, for all S
+scenarios in the launches one takes.
 
 All float arrays are float32 (except host-side capacity integration,
 float64); index arrays are int32.
@@ -82,7 +84,7 @@ class ScenarioData(NamedTuple):
     @property
     def M(self) -> int:
         """Number of servers this realization was built for."""
-        return self.base_speed.shape[0]
+        return self.base_speed.shape[-1]
 
 
 class ScenarioPad(NamedTuple):
@@ -136,21 +138,24 @@ def canonical_a_max(cluster: "Cluster", rates: "Rates", cfg, load: float,
 
 def speed_at(scen: ScenarioData, t) -> torch.Tensor:
     """[M, 3] effective per-class speed at slot ``t`` (a Python int or a
-    0-d tensor: nothing is read on the host).  Column c scales the class-c
-    service rate; overlapping windows compose multiplicatively.
+    0-d tensor: nothing is read on the host); [S, M, 3] for a stacked
+    ScenarioData (``stack_scenarios``), in as many launches.  Column c
+    scales the class-c service rate; overlapping windows compose
+    multiplicatively.
 
     The windows fold left to right, ((m_0 * m_1) * m_2) ..., then the base
     speed multiplies: the order in which the reference's product reduces
     on XLA's CPU backend, so the speeds are equal to the bit (with three or
     more non-unit factors on a server the order decides the last bit)."""
-    if scen.win_start.shape[0] == 0:
-        return scen.base_speed[:, None].expand(-1, 3)            # a view
-    active = (scen.win_start <= t) & (t < scen.win_end)          # [E]
-    mult = torch.where(active[:, None, None], scen.win_mult, 1.0)  # [E, M, 3]
-    prod = mult[0]
-    for e in range(1, mult.shape[0]):
-        prod = prod * mult[e]
-    return scen.base_speed[:, None] * prod
+    base = scen.base_speed[..., None]                            # [.., M, 1]
+    if scen.win_start.shape[-1] == 0:
+        return base.expand(*base.shape[:-1], 3)                  # a view
+    active = (scen.win_start <= t) & (t < scen.win_end)          # [.., E]
+    mult = torch.where(active[..., None, None], scen.win_mult, 1.0)
+    prod = mult[..., 0, :, :]                                    # [.., M, 3]
+    for e in range(1, mult.shape[-3]):
+        prod = prod * mult[..., e, :, :]
+    return base * prod
 
 
 def speed_trace(scen: ScenarioData, T: int) -> np.ndarray:
@@ -343,11 +348,11 @@ def _placement_arrays(spec: PlacementSpec, cluster: "Cluster",
 
 
 def placement_epoch_at(scen: Optional[ScenarioData], t):
-    """Churn-epoch index at slot ``t`` (a 0-d tensor, or 0 when the
-    scenario has no time-varying placement)."""
+    """Churn-epoch index at slot ``t`` (a 0-d tensor, [S] for a stacked
+    ScenarioData, or 0 when the scenario has no time-varying placement)."""
     if scen is None or scen.placement_epoch is None:
         return 0
-    return scen.placement_epoch[t]
+    return scen.placement_epoch[..., t]
 
 
 def placement_cdf(scen: ScenarioData) -> Optional[torch.Tensor]:
@@ -506,6 +511,53 @@ def scenario_from_numpy(scen, device="cpu") -> ScenarioData:
         return torch.tensor(a, dtype=dtype, device=device)
     return ScenarioData(*(tensor(n, getattr(scen, n))
                           for n in ScenarioData._fields))
+
+
+def scenario_row(stacked: ScenarioData, s: int) -> ScenarioData:
+    """Scenario ``s`` of a stacked ScenarioData, its leaves views."""
+    return ScenarioData(*(None if x is None else x[s] for x in stacked))
+
+
+def stack_scenarios(scenarios, cluster: "Cluster", rates: "Rates", T: int,
+                    pad: Optional[ScenarioPad] = None, *, device=None):
+    """Realize every scenario against ONE pad and stack the realizations
+    along a new leading axis.
+
+    Returns ``(stacked, lam_caps)``: a ScenarioData whose every leaf
+    carries a leading [S] scenario axis, on ``device``, and a float64 [S]
+    numpy array of capacity-region edges (tasks/slot at load 1) in the same
+    order.  ``scenarios`` is an iterable of registered names and/or
+    Scenario objects; ``pad`` defaults to the registry-wide
+    ``canonical_pad``.  Raises on an empty list, and when a realization
+    escapes the shared shapes (e.g. an ad-hoc composition exceeding the
+    pad's window headroom).  device: None stacks onto the CUDA card (and
+    raises without one); pass "cpu" for the CPU.  Realization runs on the
+    host, and the stack moves to the device once."""
+    from ..core.simulator import resolve_device
+
+    dev = resolve_device(device)
+    if pad is None:
+        pad = canonical_pad(cluster)
+    specs = list(scenarios)
+    scens, caps = [], []
+    for spec in specs:
+        scen, cap = _realize_host(get_scenario(spec), cluster, rates, T, pad)
+        scens.append(scen)
+        caps.append(cap)
+    if not scens:
+        raise ValueError("stack_scenarios: empty scenario list")
+    sig = lambda sc: [None if x is None else np.shape(x) for x in sc]
+    for spec, scen in zip(specs[1:], scens[1:]):
+        if sig(scen) != sig(scens[0]):
+            raise ValueError(
+                f"stack_scenarios: scenario {getattr(spec, 'name', spec)!r} "
+                f"does not realize to the shared canonical signature {pad} — "
+                "widen the pad, e.g. canonical_pad(cluster, "
+                "compose_depth=3) for 3-way compose() products "
+                "(see registry_limits)")
+    stacked = ScenarioData(*(None if xs[0] is None else np.stack(xs)
+                             for xs in zip(*scens)))
+    return scenario_from_numpy(stacked, dev), np.asarray(caps, np.float64)
 
 
 def realize(scenario, cluster: "Cluster", rates: "Rates", T: int,

@@ -80,3 +80,36 @@ def jsq_operand(M: int, B: int, seed: int):
             ci[b] = rng.choice(same, 3, replace=False)
     return (Q, ci.astype(np.int32), np.zeros((B, 3), np.int32),
             np.ones((B, 3), bool), np.ones(3, np.float32))
+
+
+def cells_case(seed: int, N: int, M: int, B: int, C: int, lam: float,
+               inv: str = "[N,M,3]") -> dict:
+    """N cells of ``route_commit`` inputs (numpy) for one batched launch:
+    each cell its own queues (few lengths), classes 0..3 (every third cell
+    with an all-class-3 row), prio, candidates and ``valid`` pattern (cell n
+    takes pattern n mod 5 of ``valid_patterns``, so the cells' chains stop
+    at different arrivals); the candidate classes one [B, C] block every
+    cell shares (BP-Pod's path).  ``inv``: "[3]", "[M,3]" (one pooled
+    matrix with dead servers and columns, shared) or "[N,M,3]" (one a
+    cell)."""
+    rng = np.random.default_rng(seed)
+
+    def pooled(lead):
+        pool = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), (4, 3)))
+        r = pool[rng.integers(4, size=lead + (M,))].astype(np.float32)
+        r[rng.random(lead + (M,)) < 0.125] = np.inf
+        at = np.nonzero(rng.random(lead + (M,)) < 0.3)
+        r[at + (rng.integers(3, size=len(at[0])),)] = np.inf
+        return r
+    rates = {"[3]": np.array([10.0, 20.0, 50.0], np.float32),
+             "[M,3]": pooled(()), "[N,M,3]": pooled((N,))}[inv]
+    valid = np.stack([list(valid_patterns(B, lam, np.random.default_rng(seed + n))
+                           .values())[n % 5] for n in range(N)])
+    cls = rng.integers(0, 4, (N, B, M)).astype(np.int32)
+    cls[::3, B // 2] = 3
+    return dict(Q=rng.integers(0, 3, (N, M, 3)).astype(np.int32), valid=valid,
+                inv=rates, cls=cls,
+                prio=np.argsort(rng.random((N, M)), axis=1).astype(np.int32),
+                cand_idx=rng.integers(0, M, (N, B, C)).astype(np.int32),
+                cand_cls=rng.integers(0, 4, (B, C)).astype(np.int32),
+                cand_valid=rng.random((N, B, C)) < 0.85)

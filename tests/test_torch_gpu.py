@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import jsq_operand, pod_route_case, valid_patterns
+from _torch_cases import cells_case, jsq_operand, pod_route_case, valid_patterns
 from repro_torch import kernels as tk
 from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
 from repro_torch.core.simulator import _family, _pod_for
@@ -117,6 +117,25 @@ def test_cuda_route_commit_valid_patterns(dev, M, B, C, lam, pattern):
                                    cand_cls=cand_cls, cand_valid=x["cand_valid"])
 
 
+@pytest.mark.parametrize("N", [1, 3, 133])
+@pytest.mark.parametrize("M,B,C,lam", [(500, 22, 11, 4.5), (5000, 90, 11, 45.0)])
+@pytest.mark.parametrize("inv", ["[3]", "[M,3]", "[N,M,3]"])
+def test_cuda_route_commit_cells_equal_plain_version(dev, N, M, B, C, lam, inv):
+    """A launch with a leading cell axis, one CTA a cell, equals the plain
+    version (a loop over the cells) to the bit: each cell its own queues,
+    classes, prio, candidates and valid pattern, the rates shared at a cell
+    stride of 0 or one matrix a cell, the candidate classes shared; both
+    variants, the full one also without prio.  133 cells are a full wave of
+    the card's 132 SMs and one CTA of a second wave; it counts one launch."""
+    x = cells_case(N + M, N, M, B, C, lam, inv)
+    for keys in (("cls", "prio"), ("cls",), ("cand_idx", "cand_cls", "cand_valid")):
+        tk.reset_launch_counts()
+        _assert_route_commit_equal(dev, x["Q"], x["valid"], x["inv"],
+                                   **{k: x[k] for k in keys})
+        assert sum(tk.LAUNCHES.values()) == 1
+        assert sum(tk.MATRIX_LAUNCHES.values()) == (inv != "[3]")
+
+
 @pytest.mark.parametrize("B,C", [(700, 11), (3, 8000)])
 def test_cuda_route_commit_pod_past_its_staging_room(dev, B, C):
     """At the largest M the pod kernel stages ~7000 candidate slots: 700
@@ -217,27 +236,38 @@ def test_cuda_route_commit_stays_inside_its_buffers(dev, M, B, C, at_end):
     that is never mapped, so one byte read or written past either end of a
     buffer faults; then the outputs equal the plain version.  M=1025 leaves
     all but one server of the last strip past M, M=500 the end of the only
-    one; [M, 3] and [3] rates, prio given and absent, with a tail."""
+    one; [M, 3] and [3] rates, prio given and absent, with a tail.  Then
+    the same for a launch of 3 cells, whose last cell ends each per-cell
+    buffer (and whose first starts it), with one rate matrix a cell and
+    the candidate classes shared."""
     x = _case(M, M, B, C)
     rng = np.random.default_rng(M + 1)
     valid = valid_patterns(B, B / 4, rng)["gaps"]
     cls = rng.integers(0, 4, (B, M)).astype(np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    for inv in (x["inv"], np.array([10.0, 20.0, 50.0], np.float32)):
-        for kw in ({"cls": cls, "prio": x["prio"]}, {"cls": cls},
-                   {k: x[k] for k in ("cand_idx", "cand_cls", "cand_valid")}):
-            args = [t(x["Q"]), t(valid), t(inv)]
-            kw = {k: t(v) for k, v in kw.items()}
-            plain = route_commit_ref(*args, **kw)
-            garbage = [torch.full_like(o, 7).to(dev) for o in plain]
-            with _fenced([a.to(dev) for a in args + list(kw.values())] + garbage,
-                         at_end) as f:
-                ins, outs = f[:len(args) + len(kw)], f[len(args) + len(kw):]
-                launch(*ins[:3], outs, **dict(zip(kw, ins[3:])))
-                torch.cuda.synchronize()
-                got = [o.cpu() for o in outs]
-            for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, got):
-                assert torch.equal(a, b), (sorted(kw), inv.shape, name)
+    pod_keys = ("cand_idx", "cand_cls", "cand_valid")
+    cases = [(x["Q"], valid, inv, kw)
+             for inv in (x["inv"], np.array([10.0, 20.0, 50.0], np.float32))
+             for kw in ({"cls": cls, "prio": x["prio"]}, {"cls": cls},
+                        {k: x[k] for k in pod_keys})]
+    y = cells_case(M + 2, 3, M, B, C, B / 4)
+    y["valid"][-1] = valid
+    cases += [(y["Q"], y["valid"], y["inv"], kw)
+              for kw in ({"cls": y["cls"], "prio": y["prio"]}, {"cls": y["cls"]},
+                         {k: y[k] for k in pod_keys})]
+    for Q, v, inv, kw in cases:
+        args = [t(Q), t(v), t(inv)]
+        kw = {k: t(a) for k, a in kw.items()}
+        plain = route_commit_ref(*args, **kw)
+        garbage = [torch.full_like(o, 7).to(dev) for o in plain]
+        with _fenced([a.to(dev) for a in args + list(kw.values())] + garbage,
+                     at_end) as f:
+            ins, outs = f[:len(args) + len(kw)], f[len(args) + len(kw):]
+            launch(*ins[:3], outs, **dict(zip(kw, ins[3:])))
+            torch.cuda.synchronize()
+            got = [o.cpu() for o in outs]
+        for name, a, b in zip(("Q", "W", "sel", "sel_cls", "val"), plain, got):
+            assert torch.equal(a, b), (sorted(kw), inv.shape, name)
 
 
 def test_cuda_launch_counter_and_input_checks(dev):
@@ -833,3 +863,38 @@ def test_scenario_arithmetic_on_the_card_equals_the_cpu(dev):
         a = _exp_f32(_fma32(z, s, mu))
         b = _exp_f32(_fma32(z.to(dev), s.to(dev), mu.to(dev)))
         assert torch.equal(a, b.cpu()), sigma
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod",
+                                  "jsq_maxweight_pod", "fcfs"])
+def test_grid_cells_equal_looped_runs_on_the_card(dev, algo):
+    """On the card, with the card's generators: every cell of a
+    simulate_grid (2 seeds x 2 loads) and of a simulate_sweep (uniform and
+    rack_outage) equals the looped run of that cell to the bit, and a grid
+    launches route_commit once a slot for all its cells (never for FCFS)."""
+    from repro_torch.core import simulate_grid, simulate_sweep, sweep_grid
+    from repro_torch.scenarios import canonical_pad, realize
+
+    cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
+    cfg = SimConfig(T=300, warmup=75, s_max=16, route_mode="batched")
+    loads = (0.45, 0.85)
+    same = lambda a, b: all(torch.equal(x.cpu(), y.cpu()) or
+                            (x.isnan().all() and y.isnan().all()) for x, y in zip(a, b))
+    cell = lambda r, i: type(r)(*(x[i] if x.ndim >= len(i) else x for x in r))
+    tk.reset_launch_counts()
+    grid = simulate_grid(algo, cl, rates, loads, 2, cfg, seed0=7, device=dev)
+    assert sum(tk.LAUNCHES.values()) == (0 if algo == "fcfs" else cfg.T)
+    scen, cap = realize(None, cl, rates, cfg.T, device="cpu")
+    a_max = cfg.resolve_a_max(float(np.float32(max(loads) * cap)))
+    for k in range(2):
+        for l, load in enumerate(loads):
+            one = simulate(algo, cl, rates, load, 7 + k, cfg, a_max=a_max, device=dev)
+            assert same(cell(grid, (k, l)), one), (k, load)
+    names, pad = ["uniform", "rack_outage"], canonical_pad(cl)
+    a_max = sweep_grid(cl, rates, cfg, loads, names, pad, device=dev)[3]
+    _, res, _ = simulate_sweep(algo, cl, rates, loads, 2, cfg, seed0=7, scenarios=names,
+                               pad=pad, device=dev)
+    for s, name in enumerate(names):
+        looped = simulate_grid(algo, cl, rates, loads, 2, cfg, seed0=7, scenario=name,
+                               pad=pad, a_max=a_max, device=dev)
+        assert same(cell(res, (s,)), looped), name

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import valid_patterns
+from _torch_cases import cells_case, valid_patterns
 from repro.core import cluster as jcl
 from repro.core import policies as jpol
 from repro.kernels import invrates as jinv
@@ -239,6 +239,71 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError):
         tk.route_commit(torch.zeros((M, 3), dtype=torch.int32),
                         torch.ones(B, dtype=torch.bool), torch.ones(3))
+
+
+CELL_CASES = [(n, inv) for n in (1, 3, 7) for inv in ("[3]", "[M,3]", "[N,M,3]")]
+CELL_OPERANDS = {"full": ("cls", "prio"), "full-noprio": ("cls",),
+                 "pod": ("cand_idx", "cand_cls", "cand_valid")}
+
+
+@pytest.mark.parametrize("variant", list(CELL_OPERANDS))
+@pytest.mark.parametrize("N,inv", CELL_CASES, ids=[f"N{n}-{i}" for n, i in CELL_CASES])
+def test_route_commit_over_cells_equals_one_call_a_cell(N, inv, variant):
+    """The plain version with a leading cell axis equals one unbatched call
+    a cell, each cell with its own queues, valid pattern, classes, prio and
+    candidates and with the shared operands (the [3] or [M, 3] rates, the
+    candidate classes) as they are, or the cell's row of a per-cell [N, M,
+    3]; the wrapper on CPU tensors returns the same and launches nothing."""
+    x = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in cells_case(N, N, 40, 9, 6, 3.0, inv).items()}
+    kw = {k: x[k] for k in CELL_OPERANDS[variant]}
+    tk.reset_launch_counts()
+    got = tref.route_commit_ref(x["Q"], x["valid"], x["inv"], **kw)
+    wrapped = tk.route_commit(x["Q"], x["valid"], x["inv"], **kw)
+    assert set(tk.LAUNCHES.values()) == {0}
+    assert [tuple(o.shape) for o in got] == [(N, 40, 3), (N, 40), (N, 9), (N, 9), (N, 9)]
+    for n in range(N):
+        one = {k: (v[n] if k != "cand_cls" else v) for k, v in kw.items()}
+        inv_n = x["inv"][n] if inv == "[N,M,3]" else x["inv"]
+        want = tref.route_commit_cell(x["Q"][n], x["valid"][n], inv_n, **one)
+        for name, a, b, c in zip(("Q", "W", "sel", "sel_cls", "val"), got, wrapped, want):
+            assert torch.equal(a[n], c) and torch.equal(b[n], c), (n, name)
+
+
+def test_route_commit_over_cells_shares_the_jsq_operands():
+    """Batched JSQ routing's operand: the class and valid blocks [B, 3]
+    shared by every cell, the unit rates [3]: equal to one call a cell."""
+    N, M, B = 4, 30, 8
+    rng = np.random.default_rng(2)
+    Q = torch.zeros((N, M, 3), dtype=torch.int32)
+    Q[..., 0] = torch.from_numpy(rng.integers(0, 3, (N, M)).astype(np.int32))
+    ci = torch.from_numpy(np.stack([[rng.choice(M, 3, replace=False) for _ in range(B)]
+                                    for _ in range(N)]).astype(np.int32))
+    cc, cv = torch.zeros((B, 3), dtype=torch.int32), torch.ones((B, 3), dtype=torch.bool)
+    valid = torch.arange(B) < torch.tensor([[0], [3], [8], [5]])
+    got = tk.route_commit(Q, valid, torch.ones(3), cand_idx=ci, cand_cls=cc, cand_valid=cv)
+    for n in range(N):
+        want = tref.route_commit_ref(Q[n], valid[n], torch.ones(3), cand_idx=ci[n],
+                                     cand_cls=cc, cand_valid=cv)
+        assert all(torch.equal(a[n], b) for a, b in zip(got, want)), n
+
+
+def test_route_commit_over_cells_rejects_wrong_shapes():
+    """A cell axis that disagrees with Q's, or an operand with more axes
+    than one a cell, raises rather than routing some other cells."""
+    x = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in cells_case(0, 3, 20, 5, 6, 2.0).items()}
+    bad = [dict(valid=x["valid"][:2]), dict(valid=x["valid"][0]),
+           dict(cls=x["cls"][:2]), dict(prio=x["prio"][:1]),
+           dict(inv=x["inv"][:2]), dict(cls=x["cls"][None])]
+    for change in bad:
+        y = {**x, **change}
+        with pytest.raises(ValueError):
+            tref.route_commit_ref(y["Q"], y["valid"], y["inv"], cls=y["cls"],
+                                  prio=y["prio"])
+    with pytest.raises(ValueError):
+        tref.route_commit_ref(x["Q"], x["valid"], x["inv"], cand_idx=x["cand_idx"][:1],
+                              cand_cls=x["cand_cls"], cand_valid=x["cand_valid"])
 
 
 # ---------------------------------------------------------------------------
