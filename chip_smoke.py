@@ -6,7 +6,9 @@
     python3 chip_smoke.py --profile  # only timings: the slot profile
                                      # (BP, BP-Pod, JSQ-MaxWeight-Pod, on
                                      # uniform and on rack_outage; BP-Pod
-                                     # grids of 1, 32 and 132 cells),
+                                     # grids of 1, 32 and 132 cells; BP-Pod
+                                     # with telemetry at 1 and 32 cells
+                                     # beside without; the replay's slot),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -61,6 +63,20 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      and 5000; and 200 snapshot routing ticks
      (sample -> classes -> route -> queue_update) of BP and BP-Pod at M=500
      and M=5000, checking Q and W after every tick and one launch per call.
+  5. telemetry (``simulate_with_telemetry``) at M=500: BP, BP-Pod,
+     JSQ-MaxWeight-Pod and FCFS on `uniform`, BP-Pod on slow_rack, each
+     bit-equal to its run without telemetry, route_commit launched T times,
+     the windows' sums past warmup equal to the run's totals, full BP's probe
+     rank 0, no dropped sojourn record, valid JSONL events; sojourn p50 /
+     p95 / p99, probe rank and regret, slots/s with and without, peak
+     memory; a 32-cell BP-Pod grid with telemetry, its corners equal to
+     looped runs.  Phase 3's small-run check compares the telemetry too.
+  6. trace: production_day in the registry and simulated at M=500;
+     ReplayEngine (BP, BP-Pod) at M=500, T=10 000 on a production day at
+     load ~0.45: route_commit once a padded slot, every task routed,
+     throughput within 5% of arrivals, valid events; replay tasks/s beside
+     the simulator's routed tasks/s on the same lowered scenario, and the
+     size law's ``_exp_f32`` against a slot.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -745,10 +761,22 @@ def check_small_run_matches_cpu(dev):
     every family, and JSQ-MaxWeight-Pod also with s_max < M (S < M
     scheduling rows), on `uniform` and on compose("slow_rack",
     "network_degraded") (per-server speeds and a per-class window: the
-    [M, 3] operand, the speed gathers and the servable masks)."""
-    from repro_torch.core import Cluster, Rates, SimConfig, TorchDraws, simulate
+    [M, 3] operand, the speed gathers and the servable masks).  Each
+    device runs ``simulate`` and ``simulate_with_telemetry`` on the same
+    draws: the telemetry-off sums must agree across devices, the
+    telemetry run's SimResult must equal the plain run's on each device,
+    and the two devices' Telemetry must be equal too (``telemetry_close``)."""
+    from repro_torch.core import (Cluster, Rates, SimConfig, TorchDraws, simulate,
+                                  simulate_with_telemetry)
     from repro_torch.core.simulator import _family, _pod_for
+    from repro_torch.telemetry import TelemetryConfig
     from repro_torch.scenarios import compose, realize
+
+    def same(label, what, r0, r1):
+        for name, a, b in zip(r0._fields, r0, r1):
+            if not torch.equal(a.cpu(), b.cpu()) and not (
+                    a.cpu().isnan().all() and b.cpu().isnan().all()):
+                fail(f"{label}: {name} differs between {what} ({a} vs {b})")
 
     cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
     cases = [(a, 64) for a in ("balanced_pandas", "balanced_pandas_pod",
@@ -762,24 +790,35 @@ def check_small_run_matches_cpu(dev):
             pod = _pod_for(algo, None)
             scen, lam_cap = realize(scenario, cl, rates, cfg.T, device="cpu")
             a_max = cfg.resolve_a_max(0.9 * lam_cap)
-            results = []
             lam_t = torch.tensor(0.9 * lam_cap, dtype=torch.float32) * scen.lam_shape
-            for run_dev in ("cpu", dev):
+            case = f"{algo} s_max={s_max} on {label}"
+
+            def draws(run_dev):
                 src = TorchDraws(torch.Generator().manual_seed(5), cl, rates, cfg,
                                  pod, a_max, lam_t, _family(algo), scen)
 
-                def draw(t, src=src, run_dev=run_dev):
+                def draw(t):
                     d = src(t)
                     return type(d)(*(None if v is None else v.to(run_dev) for v in d))
-                results.append(simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
-                                        a_max=a_max, device=run_dev, draws=draw))
-            for name, a, b in zip(results[0]._fields, *results):
-                if not torch.equal(a.cpu(), b.cpu()) and not (
-                        a.isnan().all() and b.cpu().isnan().all()):
-                    fail(f"{algo} s_max={s_max} on {label}: {name} differs between "
-                         f"CPU and CUDA paths ({a} vs {b})")
-            log(f"  {algo} s_max={s_max} on {label}: CUDA path equals the CPU path "
-                f"on a small run (M=20, T=600, shared draws)")
+                return draw
+
+            plain, tele = {}, {}
+            for run_dev in ("cpu", dev):
+                plain[run_dev] = simulate(algo, cl, rates, 0.9, 0, cfg, scenario=scenario,
+                                          a_max=a_max, device=run_dev,
+                                          draws=draws(run_dev))
+                tele[run_dev] = simulate_with_telemetry(
+                    algo, cl, rates, 0.9, 0, cfg, scenario=scenario, a_max=a_max,
+                    telemetry=TelemetryConfig(n_windows=16), device=run_dev,
+                    draws=draws(run_dev))
+                same(case, f"the {run_dev} path's runs with telemetry on and off",
+                     plain[run_dev], tele[run_dev][0])
+            same(case, "CPU and CUDA paths", plain["cpu"], plain[dev])
+            diff = telemetry_close(tele["cpu"][1], tele[dev][1])
+            if diff:
+                fail(f"{case}: telemetry {diff} differs between CPU and CUDA paths")
+            log(f"  {case}: CUDA path equals the CPU path on a small run (M=20, "
+                f"T=600, shared draws), with telemetry off and on")
 
 
 def run_simulations(dev, quick: bool) -> dict:
@@ -798,10 +837,11 @@ def run_simulations(dev, quick: bool) -> dict:
     scale = 20 if quick else 1
     runs = []
     for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
-        # JSQ-MaxWeight-Pod cut from T=40 000 to keep the smoke under ~450 s
-        T, warmup = (20_000, 5_000) if algo == "jsq_maxweight_pod" else (40_000, 10_000)
+        # cut from T=40 000 (JSQ-MaxWeight-Pod: 20 000; M=5000: 10 000) to
+        # make room for the telemetry and trace phases (PERF.md §4)
+        T, warmup = (5_000, 1_250) if algo == "jsq_maxweight_pod" else (10_000, 2_500)
         runs += [(algo, paper, load, T, warmup, None) for load in (0.5, 0.9)]
-        runs.append((algo, big, 0.9, 10_000, 2_500, None))
+        runs.append((algo, big, 0.9, 5_000, 1_250, None))
     # cut from T=10 000 to keep the whole smoke under ~450 s (PERF.md §4)
     runs += [(algo, paper, 0.5, 5_000, 1_250, None)
              for algo in ("jsq_maxweight", "jsq_priority")]
@@ -963,9 +1003,10 @@ def run_grids(dev, quick: bool) -> dict:
 
     rates = Rates(*PAPER_RATES)
     paper, placed = Cluster(M=500, K=10), Cluster(M=100, K=10)
-    uniform_placed = [n for n in SCENARIOS if n not in ZIPF_SCENARIOS]
+    uniform_placed = [n for n in SCENARIOS
+                      if n not in ZIPF_SCENARIOS + ("production_day",)]
     scale = 20 if quick else 1
-    runs = [("grid", a, paper, PAPER_LOADS, 4, 10_000, 2_500, None)
+    runs = [("grid", a, paper, PAPER_LOADS, 4, 5_000, 1_250, None)
             for a in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod")]
     runs += [("sweep", a, paper, SWEEP_LOADS, 4, 5_000, 1_250, uniform_placed)
              for a in ("balanced_pandas", "balanced_pandas_pod")]
@@ -1190,6 +1231,307 @@ def routing_ticks(dev, ticks: int = 200) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: telemetry
+# ---------------------------------------------------------------------------
+
+
+TELEMETRY_RUNS = (("balanced_pandas", 0.9, None), ("balanced_pandas_pod", 0.9, None),
+                  ("jsq_maxweight_pod", 0.9, None), ("fcfs", 0.15, None),
+                  ("balanced_pandas_pod", 0.9, "slow_rack"))
+TELEMETRY_FLOAT = ("w_mean", "probe_regret")     # float reductions the card orders
+# warmup 1 264 = 16 windows of 79 slots (the default config at T=5 000):
+# the measured slots are whole windows, so the windows' sums from window 16
+# on must equal the run's measured totals exactly
+TELEMETRY_T, TELEMETRY_WARMUP, TELEMETRY_GRID_T = 5_000, 1_264, 1_000
+
+
+def telemetry_close(a, b) -> str:
+    """'' when two Telemetry are equal, every leaf to the bit but the float
+    reductions TELEMETRY_FLOAT (1e-6 relative); else what differs."""
+    from repro_torch.telemetry import WINDOW_SUMS, Telemetry
+
+    for name, x, y in zip(Telemetry._fields, a, b):
+        if (x is None) != (y is None):
+            return name
+        if x is None:
+            continue
+        x, y = x.cpu(), y.cpu()
+        if name != "win":
+            if not torch.equal(x, y):
+                return name
+            continue
+        for c, ch in enumerate(WINDOW_SUMS):
+            ok = (torch.allclose(x[..., c], y[..., c], rtol=1e-6, atol=0)
+                  if ch in TELEMETRY_FLOAT else torch.equal(x[..., c], y[..., c]))
+            if not ok:
+                return f"win {ch}"
+    return ""
+
+
+def kernel_of(algo: str):
+    """The route_commit variant a batched run of ``algo`` launches."""
+    if algo == "fcfs":
+        return None
+    return "route_commit_full" if algo == "balanced_pandas" else "route_commit_pod"
+
+
+def run_telemetry(dev) -> dict:
+    """Phase 5 at the paper's width (M=500, K=10, batched, T=5 000, warmup
+    1 264, the default TelemetryConfig): BP, BP-Pod and JSQ-MaxWeight-Pod at
+    load 0.9, FCFS at 0.15, BP-Pod on slow_rack at 0.9.  Each configuration
+    runs ``simulate`` (without telemetry) and ``simulate_with_telemetry``,
+    the launch counters zeroed before each.  Gates: the telemetry run's
+    SimResult bit-equal to the plain run's; route_commit launched T times a
+    run (never for FCFS); every slot in a window, and the arrivals and
+    completions of the windows past warmup (whole windows) equal to the
+    run's measured totals; full BP's probe rank sum 0; no sojourn record
+    dropped; the JSONL events valid.  Then a BP-Pod grid with telemetry
+    over the PAPER loads x 4 seeds (32 cells, T=1 000): T launches, and its
+    corner cells' telemetry equal to looped runs'.  Returns the
+    launches."""
+    from repro_torch.core import (Cluster, Rates, SimConfig, simulate,
+                                  simulate_grid_with_telemetry, simulate_with_telemetry)
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.scenarios import realize
+    from repro_torch.telemetry import (Telemetry, TelemetryConfig, WINDOW_SUMS,
+                                       probe_summary, run_manifest, sojourn_percentiles,
+                                       to_events, validate_events)
+
+    cl, rates = Cluster(M=500, K=10), Rates(*PAPER_RATES)
+    T, warmup = TELEMETRY_T, TELEMETRY_WARMUP
+    tcfg = TelemetryConfig()
+    if warmup % tcfg.window_len(T):
+        fail(f"telemetry: warmup {warmup} is not a whole number of windows")
+    ch = {n: i for i, n in enumerate(WINDOW_SUMS)}
+    launches = {"route_commit_full": 0, "route_commit_pod": 0}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += LAUNCHES[k]
+        return out, wall, dict(LAUNCHES)
+
+    for algo, load, scenario in TELEMETRY_RUNS:
+        label = f"{algo} {scenario or 'uniform'} M=500 load={load} T={T}"
+        cfg = SimConfig(T=T, warmup=warmup, route_mode="batched")
+        kw = dict(scenario=scenario, device=dev)
+        plain, wall0, _ = timed(lambda: simulate(algo, cl, rates, load, 1, cfg, **kw))
+        torch.cuda.reset_peak_memory_stats()
+        (res, tele), wall1, counts = timed(lambda: simulate_with_telemetry(
+            algo, cl, rates, load, 1, cfg, telemetry=tcfg, **kw))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        name = kernel_of(algo)
+        if not same_result(plain, res):
+            fail(f"telemetry {label}: the SimResult differs from the run without it")
+        if sum(counts.values()) != (0 if name is None else T) or (
+                name is not None and counts[name] != T):
+            fail(f"telemetry {label}: launches {counts}, expected {T} of {name}")
+        w0 = warmup // tcfg.window_len(T)
+        win = tele.win[w0:].sum(dim=0).cpu()
+        arr, comp = (round(float(x) * (T - warmup))
+                     for x in (res.arrival_rate_hat, res.throughput))
+        if (float(win[ch["arrivals"]]), float(win[ch["completions"]]),
+                float(tele.win[:, ch["slots"]].sum())) != (arr, comp, T):
+            fail(f"telemetry {label}: windows hold arrivals / completions "
+                 f"{win[ch['arrivals']]:.0f} / {win[ch['completions']]:.0f} past "
+                 f"warmup, {float(tele.win[:, ch['slots']].sum()):.0f} slots; the run "
+                 f"{arr} / {comp}, {T} slots")
+        probe = probe_summary(tele)
+        rank_sum = float(tele.win[:, ch["probe_rank"]].sum())
+        if algo == "balanced_pandas" and (rank_sum != 0.0 or not probe["decisions"]):
+            fail(f"telemetry {label}: full BP's probe rank sum is {rank_sum} over "
+                 f"{probe['decisions']} decisions")
+        if float(tele.sojourn_dropped) != 0.0:
+            fail(f"telemetry {label}: {float(tele.sojourn_dropped)} sojourn records dropped")
+        events = to_events(tele, tcfg, T, warmup, manifest=run_manifest(
+            algo=algo, scenario=scenario or "uniform", load=load, T=T, warmup=warmup))
+        errors = validate_events(events)
+        if errors:
+            fail(f"telemetry {label}: invalid events {errors[:3]}")
+        pct = sojourn_percentiles(tele, tcfg)
+        rank = "" if probe["mean_rank"] is None else (
+            f" mean_rank={probe['mean_rank']:.4f} mean_regret={probe['mean_regret']:.4f}"
+            f" over {probe['decisions']:.0f} decisions")
+        log(f"  telemetry {label}: sojourn p50/p95/p99="
+            f"{pct['p50']:.2f}/{pct['p95']:.2f}/{pct['p99']:.2f} n={pct['n']:.0f}{rank} "
+            f"slots/s {T / wall1:.1f} with telemetry, {T / wall0:.1f} without "
+            f"(x{wall1 / wall0:.2f} wall) launches={counts} peak_mem={peak:.1f} MiB "
+            f"events={len(events)}")
+
+    # the grid: one BP-Pod launch a slot for 32 cells, corners against looped runs
+    T = TELEMETRY_GRID_T
+    cfg = SimConfig(T=T, warmup=T // 4, route_mode="batched")
+    torch.cuda.reset_peak_memory_stats()
+    (res, tele), wall, counts = timed(lambda: simulate_grid_with_telemetry(
+        "balanced_pandas_pod", cl, rates, PAPER_LOADS, 4, cfg, telemetry=tcfg, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if counts["route_commit_pod"] != T or sum(counts.values()) != T:
+        fail(f"telemetry grid: launches {counts}, expected {T}")
+    _, cap = realize(None, cl, rates, T, device="cpu")
+    a_max = cfg.resolve_a_max(float(np.float32(max(PAPER_LOADS) * cap)))
+    for k, l in ((0, 0), (3, len(PAPER_LOADS) - 1)):
+        (_, one), _, _ = timed(lambda: simulate_with_telemetry(
+            "balanced_pandas_pod", cl, rates, PAPER_LOADS[l], k, cfg, a_max=a_max,
+            telemetry=tcfg, device=dev))
+        diff = telemetry_close(Telemetry(*(None if x is None else x[k, l] for x in tele)),
+                               one)
+        if diff:
+            fail(f"telemetry grid: cell (seed {k}, load {PAPER_LOADS[l]}) differs from "
+                 f"its looped run in {diff}")
+    log(f"  telemetry grid balanced_pandas_pod M=500 PAPER loads x 4 seeds (32 cells) "
+        f"T={T}: wall={wall:.2f}s cell-slots/s={32 * T / wall:.1f} launches={counts} "
+        f"peak_mem={peak:.1f} MiB; corner cells equal looped runs")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: trace replay
+# ---------------------------------------------------------------------------
+
+
+REPLAY_T = 10_000
+REPLAY_TASKS = 17_100     # production_day(REPLAY_TASKS) at M=500, T=10 000: load ~0.45
+TRACE_SIM_T = 5_000
+
+
+def time_exp_f32(dev, scen) -> tuple:
+    """(host ms, device ms) of one slot's size-law multiplier: the work of
+    M=500 fresh tasks through ``_task_work`` with ``scen``'s size law, the
+    float64 emulation of XLA's exp (``_exp_f32``) on the card."""
+    from repro_torch.core.simulator import _task_work
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    dur = torch.randint(1, 200, (1, 500), generator=g, device=dev, dtype=torch.int32)
+    e = torch.randn((1, 500), generator=g, device=dev) * 0.7071067811865476
+    fn = lambda: _task_work(dur, scen, e)
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    # ~60 launches a call: 12 calls stay under the ~1000 the card queues
+    return (time.perf_counter() - t0) / 200 * 1e3, device_time_ms(fn, 12, warmup=5)
+
+
+def run_trace(dev) -> dict:
+    """Phase 6: ``production_day`` in the registry and simulated by BP-Pod
+    at M=500 (load 0.45, T=5 000); then ``ReplayEngine`` of BP and BP-Pod at
+    M=500 on production_day(REPLAY_TASKS) binned into T=10 000 slots, with
+    telemetry (gates: route_commit once a padded slot, every task routed,
+    the mean finite, throughput within 5% of arrivals, the windows' arrivals
+    = the trace's tasks, valid events), a BP-Pod replay without telemetry
+    beside the simulator on the same lowered scenario (tasks/s against
+    routed tasks/s), and the size law's ``_exp_f32`` against a slot.
+    Returns the launches."""
+    from repro_torch.core import Cluster, Rates, SimConfig, simulate
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.scenarios import realize, scenario_names
+    from repro_torch.telemetry import TelemetryConfig, validate_events
+    from repro_torch.trace import ReplayEngine, production_day
+
+    cl, rates = Cluster(M=500, K=10), Rates(*PAPER_RATES)
+    launches = {"route_commit_full": 0, "route_commit_pod": 0}
+    names = scenario_names()
+    if names[-1] != "production_day" or len(names) != 16:
+        fail(f"production_day is not the registry's 16th entry: {names}")
+    T = TRACE_SIM_T
+    cfg = SimConfig(T=T, warmup=T // 4, route_mode="batched")
+    t0 = time.perf_counter()
+    scen, cap = realize("production_day", cl, rates, T, device="cpu")
+    realize_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = simulate("balanced_pandas_pod", cl, rates, 0.45, 1, cfg, scenario="production_day",
+                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    launches["route_commit_pod"] += counts["route_commit_pod"]
+    f = lambda x: float(x)
+    log(f"  simulate balanced_pandas_pod production_day M=500 load=0.45 T={T}: "
+        f"mean_completion_slots={f(r.mean_completion_slots):.4f} throughput/arrivals="
+        f"{f(r.throughput) / f(r.arrival_rate_hat):.5f} clip={f(r.clip_fraction):.6f} "
+        f"size_sigma={f(scen.size_sigma):.4f} lam_cap={cap:.4f} realize={realize_s:.1f}s "
+        f"wall={wall:.2f}s slots/s={T / wall:.1f} launches={counts}")
+    if counts["route_commit_pod"] != T or sum(counts.values()) != T:
+        fail(f"production_day: launches {counts}, expected {T}")
+    if not np.isfinite(f(r.mean_completion_slots)) or f(r.clip_fraction) != 0.0:
+        fail("production_day: the mean is not finite or arrivals were clipped")
+
+    T = REPLAY_T
+    cfg = SimConfig(T=T, warmup=T // 4)
+    log_ = production_day(n_tasks=REPLAY_TASKS)
+    t0 = time.perf_counter()
+    engines = {algo: ReplayEngine(log_, cl, rates, cfg=cfg, algo=algo,
+                                  telemetry=TelemetryConfig(), device=dev)
+               for algo in ("balanced_pandas", "balanced_pandas_pod")}
+    build_s = time.perf_counter() - t0
+    for algo, eng in engines.items():
+        if not 0.40 < eng.load < 0.50:
+            fail(f"replay: load {eng.load:.4f}, expected ~0.45")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = eng.run(0)
+        counts = dict(LAUNCHES)
+        name = kernel_of(algo)
+        launches[name] += counts[name]
+        padded = eng.n_chunks * eng.chunk_slots
+        r = res.result
+        thr = f(r.throughput) / f(r.arrival_rate_hat)
+        arrivals = float(res.telemetry.win[:, 7].sum())
+        log(f"  replay {algo} M=500 T={T} tasks={res.routed_tasks} load={eng.load:.4f} "
+            f"a_cap={eng.a_cap} chunks={eng.n_chunks}x{eng.chunk_slots} with telemetry: "
+            f"tasks/s={res.tasks_per_s:.1f} wall={res.wall_s:.2f}s "
+            f"mean_completion_slots={f(r.mean_completion_slots):.4f} "
+            f"throughput/arrivals={thr:.5f} launches={counts} (engines built in "
+            f"{build_s:.1f}s, the LP included)")
+        if counts[name] != padded or sum(counts.values()) != padded:
+            fail(f"replay {algo}: launches {counts}, expected {padded}")
+        if res.routed_tasks != log_.n_tasks or arrivals != log_.n_tasks:
+            fail(f"replay {algo}: {res.routed_tasks} routed, {arrivals} in the windows, "
+                 f"of {log_.n_tasks}")
+        if not np.isfinite(f(r.mean_completion_slots)) or abs(thr - 1.0) > 0.05:
+            fail(f"replay {algo}: mean {f(r.mean_completion_slots)} throughput {thr}")
+        errors = validate_events(eng.telemetry_events(res))
+        if errors:
+            fail(f"replay {algo}: invalid events {errors[:3]}")
+
+    eng = ReplayEngine(log_, cl, rates, cfg=cfg, device=dev)          # BP-Pod, no telemetry
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = eng.run(0)
+    launches["route_commit_pod"] += LAUNCHES["route_commit_pod"]
+    sim_cfg = SimConfig(T=T, warmup=T // 4, route_mode="batched")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    s = simulate("balanced_pandas_pod", cl, rates, eng.load, 1, sim_cfg,
+                 scenario=eng.scenario, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["route_commit_pod"] += LAUNCHES["route_commit_pod"]
+    host_ms, dev_ms = time_exp_f32(dev, eng.scen)
+    slot_ms = wall / T * 1e3
+    log(f"  replay balanced_pandas_pod without telemetry: tasks/s={res.tasks_per_s:.1f} "
+        f"slots/s={T / res.wall_s:.1f} mean_completion_slots="
+        f"{f(res.result.mean_completion_slots):.4f}; simulate on the same lowered scenario: "
+        f"routed tasks/s={eng.load * eng.lam_cap * T / wall:.1f} slots/s={T / wall:.1f} "
+        f"mean_completion_slots={f(s.mean_completion_slots):.4f}; replay / simulator "
+        f"tasks/s = {res.tasks_per_s / (eng.load * eng.lam_cap * T / wall):.3f}")
+    log(f"  _exp_f32 (size law, 500 starts): {host_ms:.4f} ms host, {dev_ms:.6f} ms device "
+        f"a call; {host_ms / slot_ms:.4f} of the simulator's {slot_ms:.4f} ms slot")
+    return launches
+
+
 def profile_run(label: str, run, slots: int) -> None:
     """torch.profiler over one call of ``run`` (``slots`` slots, warmed by
     a first call): wall per slot, device busy time per slot, the device's
@@ -1257,6 +1599,43 @@ def profile_slots(dev, slots: int = 400) -> None:
             f"cell-slots/s={N * slots / wall:.1f}")
 
 
+def profile_telemetry(dev, slots: int = 400) -> None:
+    """Telemetry's cost a slot: BP-Pod at M=500, load 0.9, on `uniform`,
+    with the collectors on (the default TelemetryConfig), one cell and a
+    grid of 32 (seeds), each also timed without the profiler, beside the
+    same runs without telemetry; then the replay's slot: ReplayEngine
+    (BP-Pod, M=500, telemetry off) over ``slots`` slots of a production
+    day at phase 6's arrival rate (REPLAY_TASKS in 10 000 slots)."""
+    from repro_torch.core import (Cluster, Rates, SimConfig, simulate_grid,
+                                  simulate_grid_with_telemetry)
+    from repro_torch.trace import ReplayEngine, production_day
+
+    rates, cl = Rates(*PAPER_RATES), Cluster(M=500, K=10)
+    cfg = SimConfig(T=slots, warmup=0, route_mode="batched")
+    for N in (1, 32):
+        for tele in (True, False):
+            run = (lambda: simulate_grid_with_telemetry(
+                "balanced_pandas_pod", cl, rates, [0.9], N, cfg, device=dev)) if tele else \
+                (lambda: simulate_grid("balanced_pandas_pod", cl, rates, [0.9], N, cfg,
+                                       device=dev))
+            profile_run(f"{'telemetry' if tele else 'no telemetry'} grid balanced_pandas_pod "
+                        f"uniform M=500 load=0.9 cells={N}", run, slots)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"    unprofiled: wall/slot={wall / slots * 1e3:.4f} ms "
+                f"slots/s={slots / wall:.1f} cell-slots/s={N * slots / wall:.1f}")
+    log_ = production_day(n_tasks=round(REPLAY_TASKS * slots / REPLAY_T))
+    t0 = time.perf_counter()
+    eng = ReplayEngine(log_, cl, rates, cfg=SimConfig(T=slots, warmup=0),
+                       chunk_slots=slots, device=dev)
+    log(f"  replay engine M=500 T={slots} tasks={log_.n_tasks} load={eng.load:.4f} built "
+        f"in {time.perf_counter() - t0:.1f} s (the capacity LP included)")
+    profile_run("replay balanced_pandas_pod M=500", lambda: eng.run(0), slots)
+
+
 def sweep_route_commit(dev) -> None:
     """route_commit's device ms a launch at each valid-prefix length n of a
     coarse grid, 0 to B (M=500 B=22 and M=5000 B=90, C=11, homogeneous
@@ -1321,6 +1700,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_slots(dev)
+        profile_telemetry(dev)
         sweep_route_commit(dev)
         time_snapshot_kernels(dev, False, floor)
         complexity_per_decision(dev, False)
@@ -1349,6 +1729,12 @@ def main() -> int:
     tick_times(dev, args.quick)
     log("[4] snapshot routing ticks")
     launches.update(routing_ticks(dev))
+    log("[5] telemetry: the collectors on the card")
+    for name, n in run_telemetry(dev).items():
+        launches[name] += n
+    log("[6] trace: production_day and ReplayEngine")
+    for name, n in run_trace(dev).items():
+        launches[name] += n
 
     kernels = []
     keep = ("ms", "plain_ms", "bound_ms", "us_per_step")

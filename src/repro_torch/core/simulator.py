@@ -54,8 +54,14 @@ with every tier at 0 schedules nothing; BP's workload and routing divide by
 the slot's own [M, 3] rates, ``+inf`` where a tier is down.  A realization
 with unit speeds and no windows (``uniform``) takes the homogeneous fast
 path instead: unit speeds, no masks, the ``[3]`` rate vector.  Skewed
-placement and the per-task size law enter through the draws.  Telemetry
-comes with a later slice.
+placement and the per-task size law enter through the draws.
+
+Telemetry (``repro_torch.telemetry``): with a ``TelemetryConfig`` the slot
+steps also feed the collectors (windows, histograms, sojourn rings, probe
+rank and regret), which update their tensors in place, take no draw and
+read nothing on the host, so the sums are those of the run without them.
+Batched BP ranks each decision against the workloads the kernel scored it
+with (``kernels.ref.route_commit_wseq``).
 
 Cells.  Every state tensor, accumulator and draw carries a leading cell
 axis [N], and one slot step advances all N cells at once: the BP and SQ
@@ -79,8 +85,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..kernels.ref import workload
+from ..kernels.ref import route_commit_wseq, workload
 from ..kernels.route_commit import route_commit
+from ..telemetry import collectors as tlm
+from ..telemetry.export import WarmupPolicy, auto_extend_warmup
 from ..scenarios.build import (ScenarioData, host, placement_cdf, realize,
                                sample_locals_scenario, scenario_row,
                                speed_at, stack_scenarios)
@@ -89,11 +97,12 @@ from .cluster import (GEOMETRIC, LOCAL, LOGNORMAL, RACK, REMOTE, Cluster,
                       Rates, durations_from_normal, durations_from_uniform,
                       locality_class, safe_inv_rates, sample_locals,
                       uniform_int, uniform_open)
-from .policies import (PodSpec, bp_candidates_per_route,
+from .policies import (PodSpec, bp_candidates_per_route, inv_rate_for,
                        jsqmw_candidates_per_schedule, lex_argmax,
                        pod_candidate_classes, pod_candidates, rack_peer_of,
                        remote_peer_of, route_balanced_pandas_full,
-                       route_jsq_local, route_pod_candidates, take_last)
+                       route_jsq_local, route_pod_candidates, take_last,
+                       weighted_score)
 
 _F = torch.float32
 _INF = float("inf")
@@ -337,6 +346,20 @@ class FCFSDraws(NamedTuple):
     size_e: Optional[torch.Tensor] = None  # f32 [G] size-law draws
 
 
+def draw_durations(gen: torch.Generator, cfg: SimConfig, p: torch.Tensor,
+                   n: int, rows: int) -> torch.Tensor:
+    """int32 [n, rows, 3] service durations from ``gen`` (on the device of
+    ``p``, the [3] class rates): one draw a row, evaluated for every class,
+    under ``cfg.service_dist``."""
+    dev = p.device
+    if cfg.service_dist == GEOMETRIC:
+        return durations_from_uniform(uniform_open(gen, (n, rows, 1), dev), p)
+    if cfg.service_dist == LOGNORMAL:
+        z = torch.randn((n, rows, 1), generator=gen, device=dev)
+        return durations_from_normal(z, p, cfg.sigma)
+    raise ValueError(f"unknown service distribution {cfg.service_dist!r}")
+
+
 class TorchDraws:
     """Default draw source of one cell: ``draws(t)`` is slot t's draws for
     ``family`` ("bp", "sq" or "fcfs"), in the reference's distributions,
@@ -392,15 +415,7 @@ class TorchDraws:
 
     def _dur(self, n: int, rows: int) -> torch.Tensor:
         """int32 [n, rows, 3]: one draw a row, evaluated for every class."""
-        g, dev = self.gen, self.lam_t.device
-        if self.cfg.service_dist == GEOMETRIC:
-            return durations_from_uniform(uniform_open(g, (n, rows, 1), dev),
-                                          self.p)
-        if self.cfg.service_dist == LOGNORMAL:
-            z = torch.randn((n, rows, 1), generator=g, device=dev)
-            return durations_from_normal(z, self.p, self.cfg.sigma)
-        raise ValueError(f"unknown service distribution "
-                         f"{self.cfg.service_dist!r}")
+        return draw_durations(self.gen, self.cfg, self.p, n, rows)
 
     def _locals(self, t0: int, n: int, rows: int) -> torch.Tensor:
         """int32 [n, rows, n_rep] replica triples of slots t0 .. t0 + n - 1
@@ -541,13 +556,16 @@ def _one_cell_too(is_one: Callable[..., bool]):
     """Let a function written for a leading cell axis also take one cell's
     unbatched positional arguments (``is_one(*args)`` says which): those
     are lifted to one cell, and the result's cell axis is dropped.  Keyword
-    arguments pass through as they are: constants, rates and speeds are
-    shared by every cell."""
+    arguments pass through as they are (constants, rates and speeds are
+    shared by every cell), except the cell's ``tele``, lifted as a view so
+    that the collectors' in-place updates reach it."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kw):
             if not is_one(*args):
                 return fn(*args, **kw)
+            if kw.get("tele") is not None:
+                kw["tele"] = _lift(kw["tele"])
             return _drop(fn(*map(_lift, args), **kw))
         return call
     return wrap
@@ -711,7 +729,8 @@ def _bp_schedule(dur, Q, busy, rem, cls, servable=None, scen=None,
     holds each server's duration for each class; ``servable`` bool [N, M,
     3] (speed > 0), None: all servable (the homogeneous fast path);
     ``scen`` and ``size_e`` the size law (``_task_work``).  Returns (Q',
-    busy', rem', cls', starts_by_class [N, 3], n_started [N])."""
+    busy', rem', cls', starts_by_class [N, 3], n_started [N], pick [N, M],
+    start [N, M]): pick and start let the sojourn rings mirror the pops."""
     has = Q > 0 if servable is None else (Q > 0) & servable
     pick = torch.argmax(has.to(torch.uint8), dim=-1)        # first nonempty
     start = ~busy & has.any(dim=-1)
@@ -722,23 +741,40 @@ def _bp_schedule(dur, Q, busy, rem, cls, servable=None, scen=None,
     rem = torch.where(start, _task_work(d, scen, size_e), rem)
     cls = torch.where(start, pick.to(torch.int32), cls)
     return (Q, busy, rem, cls, taken.sum(dim=-2).to(_F),
-            start.sum(dim=-1).to(_F))
+            start.sum(dim=-1).to(_F), pick, start)
+
+
+def _full_bp_scores(W, cls_arr, inv_rates):
+    """[..., M] weighted-workload score of every server for each arrival:
+    what the O(M) policy would examine (the probe-quality oracle).  W and
+    cls_arr [N, ..., M] (or W [N, M] for cls [N, M])."""
+    m = torch.arange(cls_arr.shape[-1], device=cls_arr.device)
+    return weighted_score(W, inv_rate_for(inv_rates, m, cls_arr))
 
 
 def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
                     sequential: bool, class_tiebreak: bool = True,
-                    cand_cls: Optional[torch.Tensor] = None):
+                    cand_cls: Optional[torch.Tensor] = None, tcfg=None,
+                    cluster: Optional[Cluster] = None):
     """Route every cell's arrival batch; returns (Q', sel [N, A], sel_cls
-    [N, A]).
+    [N, A], probe): probe is (rank_sum, regret_sum, n_decisions) [N] when
+    ``tcfg`` collects probes, else None.
 
     batched: one ``route_commit`` launch for all N cells (sequential
     commits inside each cell's batch; ties by class, then ``draws.prio`` /
-    candidate slot).  sequential: per-arrival plain routing, each arrival
-    seeing the previous one's queues; random ties (``draws.tie_rnd`` /
-    ``draws.cand_rnd``); arrival b of every cell routes in one set of ops,
-    up to the largest arrival count of any cell (the cells with fewer
-    commit nothing past theirs)."""
+    candidate slot); the probes rank each decision against the pre-commit
+    workloads the kernel scored it with (``route_commit_wseq``).
+    sequential: per-arrival plain routing, each arrival seeing the previous
+    one's queues; random ties (``draws.tie_rnd`` / ``draws.cand_rnd``);
+    arrival b of every cell routes in one set of ops, up to the largest
+    arrival count of any cell (the cells with fewer commit nothing past
+    theirs).  The probes need every arrival's class grid: full BP's draws
+    carry it, BP-Pod's derive it from the replica triples (no draw)."""
+    collect = tcfg is not None and tcfg.probes
+    if collect and cls_arr is None:
+        cls_arr = locality_class(cluster, draws.locals_)
     if not sequential:
+        Q0 = Q
         if pod is None:
             Q, _W, sel, sel_cls, _val = route_commit(
                 Q, mask, inv_rates, cls=cls_arr, prio=draws.prio)
@@ -746,7 +782,14 @@ def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
             Q, _W, sel, sel_cls, _val = route_commit(
                 Q, mask, inv_rates, cand_idx=draws.cand_idx,
                 cand_cls=cand_cls, cand_valid=draws.cand_valid)
-        return Q, sel, sel_cls
+        probe = None
+        if collect:
+            full = _full_bp_scores(
+                route_commit_wseq(Q0, sel, sel_cls, mask, inv_rates),
+                cls_arr, inv_rates)                              # [N, A, M]
+            chosen = full.gather(-1, sel.to(torch.int64)[..., None])[..., 0]
+            probe = tlm.probe_stats_min(full, chosen, mask)
+        return Q, sel, sel_cls, probe
 
     # arrivals after a cell's last valid one commit nothing and their
     # decisions are never read (routed counts are masked): route up to the
@@ -758,6 +801,8 @@ def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
     Q = Q.clone()
     sel = torch.zeros(mask.shape, dtype=torch.int32, device=Q.device)
     sel_cls = torch.zeros_like(sel)
+    full = torch.empty((N, n, Q.shape[1]), dtype=_F, device=Q.device) \
+        if collect else None
     for b in range(n):
         W = _bp_workload(Q, inv_rates)
         if pod is None:
@@ -768,10 +813,16 @@ def _bp_route_batch(draws: SlotDraws, Q, cls_arr, mask, inv_rates, pod,
                                         draws.cand_idx[:, b],
                                         cand_cls[..., b, :].expand(N, -1),
                                         draws.cand_valid[:, b], inv_rates)
+        if collect:     # scored against the queues arrival b saw
+            full[:, b] = _full_bp_scores(W, cls_arr[:, b], inv_rates)
         Q.index_put_((cells, s.to(torch.int64), c.to(torch.int64)),
                      mask[:, b].to(torch.int32), accumulate=True)
         sel[:, b], sel_cls[:, b] = s, c
-    return Q, sel, sel_cls
+    probe = None
+    if collect:
+        chosen = full.gather(-1, sel[:, :n].to(torch.int64)[..., None])[..., 0]
+        probe = tlm.probe_stats_min(full, chosen, mask[:, :n])
+    return Q, sel, sel_cls, probe
 
 
 def _one_state(state, *_) -> bool:
@@ -785,7 +836,9 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
              pod: Optional[PodSpec], a_max: int, measure: bool,
              in_half2: bool, class_tiebreak: bool = True,
              cand_cls: Optional[torch.Tensor] = None,
-             speed: Optional[torch.Tensor] = None, scen=None):
+             speed: Optional[torch.Tensor] = None, scen=None,
+             t: int = 0, tele: Optional[tlm.Telemetry] = None,
+             tcfg: Optional[tlm.TelemetryConfig] = None):
     """One slot of the BP family in every cell: completions -> scheduling
     -> arrivals and routing -> accumulators.  State, sums and draws lead
     by the cell axis [N] (or are one cell's, unbatched).  ``speed`` is the
@@ -794,7 +847,8 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
     where a tier is down); speed None is the homogeneous path (unit
     speeds, the [3] vector).  ``scen`` carries the size law
     (``_task_work``).  ``cand_cls`` ([A, C] int32, shared; pod only) may
-    be passed precomputed; full BP needs ``draws.cls``."""
+    be passed precomputed; full BP needs ``draws.cls``.  With ``tcfg``,
+    slot ``t`` also feeds the collectors of ``tele`` (in place)."""
     N = state.Q.shape[0]
     if pod is not None and cand_cls is None:
         cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
@@ -804,15 +858,25 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
         speed = speed.expand(N, -1, -1)
     busy, rem, completed = _progress_service(state.busy, state.rem, speed,
                                              state.cls)
-    Q, busy, rem, cls_serv, starts, n_started = _bp_schedule(
+    if tcfg is not None:
+        # sojourn = completion slot - arrival slot of the task in service
+        tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
+    Q, busy, rem, cls_serv, starts, n_started, pick, start = _bp_schedule(
         draws.dur, state.Q, busy, rem, state.cls,
         servable=None if speed is None else speed > 0, scen=scen,
         size_e=draws.size_e)
+    if tcfg is not None and tele.ring is not None:
+        m = torch.arange(cluster.M, device=Q.device)
+        tlm.ring_pop(tele, tcfg, m * 3 + pick, start, m.expand(N, -1),
+                     distinct=True)
     mask, clipped = _arrival_batch(draws, a_max)
-    Q, sel, sel_cls = _bp_route_batch(
+    Q, sel, sel_cls, probe = _bp_route_batch(
         draws, Q, draws.cls, mask, inv_rate_m, pod,
         sequential=(cfg.route_mode == "sequential"),
-        class_tiebreak=class_tiebreak, cand_cls=cand_cls)
+        class_tiebreak=class_tiebreak, cand_cls=cand_cls, tcfg=tcfg,
+        cluster=cluster)
+    if tcfg is not None:
+        tlm.ring_push(tele, tcfg, sel.to(torch.int64) * 3 + sel_cls, mask, t)
 
     routed = _class_hits(sel_cls, mask).sum(dim=-2).to(_F)
     busy_n = busy.sum(dim=-1).to(_F)
@@ -822,6 +886,12 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
                 comp=completed.sum(dim=-1).to(_F), starts=starts,
                 routed=routed, busy_n=busy_n, routes=arr, scheds=n_started,
                 measure=measure)
+    if tcfg is not None:
+        tlm.collect_step(
+            tele, tcfg, t=t, T=cfg.T, N=Ns, q_mass=Q.sum(dim=-2),
+            qlen=Q.sum(dim=-1), workload=_bp_workload(Q, inv_rate_m),
+            arrivals=arr, clipped=clipped, completions=completed.sum(dim=-1),
+            busy_n=busy_n, probe=probe or tlm.ZERO_PROBE)
     return BPState(Q, busy, rem, cls_serv), sums
 
 
@@ -883,7 +953,7 @@ def _grant_conflicts(tgt, prio, has, Q, rnd):
 def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
                  consts: StepConsts, S: int, variant: str,
                  pod: Optional[PodSpec], speed: Optional[torch.Tensor] = None,
-                 scen=None):
+                 scen=None, tcfg: Optional[tlm.TelemetryConfig] = None):
     """Batched scheduling of the SQ family, in every cell at once (Q, busy,
     rem, cls [N, M]; or one cell's, unbatched).
 
@@ -896,7 +966,10 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
     (server, queue) pair whose class tier is down is ineligible and a
     server with every tier down schedules nothing; None is the homogeneous
     path.  ``scen`` carries the size law.  Returns (Q', busy', rem', cls',
-    starts [N, 3], n_decisions [N], rows, tgt, granted)."""
+    starts [N, 3], n_decisions [N], rows, tgt, granted), and with ``tcfg``
+    a tenth entry, the probe (rank_sum, regret_sum, n) [N]: MaxWeight's
+    pick ranked against the [S, M] weights the O(M) MaxWeight examines
+    (None where probes are off or for JSQ-Priority)."""
     N, M = Q.shape
     idle = ~busy
     anyq = (Q > 0).any(dim=-1, keepdim=True)
@@ -918,6 +991,8 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         act = eligible.gather(-1, rows)
     sp_rows = None if speed is None else _rows_of(speed, rows)   # [N, S, 3]
 
+    collect = tcfg is not None and tcfg.probes
+    probe = None
     qf = Q.to(_F)
     if variant == "maxweight" and pod is None:
         rel = _relation_rows(consts.rack_of, rows)              # [N, S, M]
@@ -932,6 +1007,8 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         val = w.gather(-1, tgt[..., None])[..., 0]
         has = cand.any(dim=-1) & act
         prio = (-val,)
+        if collect:     # full MaxWeight is the O(M) oracle itself: rank 0
+            probe = tlm.probe_stats_max(w, val, has, cand)
     elif variant == "maxweight":
         u = draws.cand
         cand_idx = torch.cat([rows[..., None],
@@ -950,6 +1027,15 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         val = w.gather(-1, c)[..., 0]
         has = cand.any(dim=-1) & act
         prio = (-val,)
+        if collect:     # rank the 1 + d' pick against the full [S, M] oracle
+            rel_f = _relation_rows(consts.rack_of, rows)
+            w_f = qf[:, None, :] * consts.rates[rel_f]
+            elig = (Q > 0)[:, None, :].expand(N, S, M)
+            if speed is not None:
+                sp_f = sp_rows.gather(-1, rel_f)
+                w_f = w_f * sp_f
+                elig = elig & (sp_f > 0)
+            probe = tlm.probe_stats_max(w_f, val, has, elig)
     elif variant == "priority":
         rel = _relation_rows(consts.rack_of, rows)              # [N, S, M]
         nonempty = (Q > 0)[:, None, :]
@@ -994,23 +1080,27 @@ def _sq_schedule(draws: SQDraws, cluster: Cluster, Q, busy, rem, cls, *,
         cls = cls.scatter(-1, rows, torch.where(granted, start_cls32,
                                                 cls.gather(-1, rows)))
     starts = _class_hits(start_cls, granted).sum(dim=-2).to(_F)
-    return (Q, busy, rem, cls, starts, has.sum(dim=-1).to(_F), rows, tgt,
-            granted)
+    out = (Q, busy, rem, cls, starts, has.sum(dim=-1).to(_F), rows, tgt,
+           granted)
+    return out if tcfg is None else out + (probe,)
 
 
 def _jsq_route_sequential(draws: SQDraws, Q, mask):
     """Per-arrival join-the-shortest-local-queue in every cell, random
     ties, each arrival seeing the previous one's commit.  Routes up to the
     largest arrival count of any cell (the rest commit nothing): reads the
-    arrival counts on the host, once a slot."""
+    arrival counts on the host, once a slot.  Returns (Q', sel [N, A]),
+    sel 0 past the routed arrivals."""
     n = int(mask.sum(dim=-1).max()) if mask.numel() else 0
     cells = torch.arange(Q.shape[0], device=Q.device)
     Q = Q.clone()
+    sel = torch.zeros(mask.shape, dtype=torch.int64, device=Q.device)
     for b in range(n):
         s = route_jsq_local(draws.route[:, b], Q, draws.locals_[:, b])
         Q.index_put_((cells, s.to(torch.int64)), mask[:, b].to(torch.int32),
                      accumulate=True)
-    return Q
+        sel[:, b] = s
+    return Q, sel
 
 
 @_one_cell_too(_one_state)
@@ -1018,32 +1108,40 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
              cluster: Cluster, cfg: SimConfig, consts: StepConsts,
              variant: str, pod: Optional[PodSpec], a_max: int, measure: bool,
              in_half2: bool, speed: Optional[torch.Tensor] = None,
-             scen=None):
+             scen=None, t: int = 0, tele: Optional[tlm.Telemetry] = None,
+             tcfg: Optional[tlm.TelemetryConfig] = None):
     """One slot of the SQ family in every cell: completions -> scheduling
-    -> arrivals and routing -> accumulators (cells, ``speed`` and ``scen``
-    as in ``_bp_step``).  Batched routing is one pod ``route_commit``
-    launch for all cells with unit rates on every fleet, as in the
-    reference (JSQ routing is workload-free): Q embedded in column 0 of an
-    [N, M, 3] queue, the replica triples as candidates of class 0, all
-    valid (ties by replica slot; the class and valid operands shared by
+    -> arrivals and routing -> accumulators (cells, ``speed``, ``scen`` and
+    the telemetry as in ``_bp_step``).  Batched routing is one pod
+    ``route_commit`` launch for all cells with unit rates on every fleet, as
+    in the reference (JSQ routing is workload-free): Q embedded in column 0
+    of an [N, M, 3] queue, the replica triples as candidates of class 0,
+    all valid (ties by replica slot; the class and valid operands shared by
     every cell)."""
     busy, rem, completed = _progress_service(
         state.busy, state.rem,
         None if speed is None else speed.expand(state.Q.shape[0], -1, -1),
         state.cls)
-    Q, busy, rem, cls_serv, starts, n_sched, *_ = _sq_schedule(
-        draws, cluster, state.Q, busy, rem, state.cls, consts=consts,
-        S=min(cfg.s_max, cluster.M), variant=variant, pod=pod, speed=speed,
-        scen=scen)
+    if tcfg is not None:
+        tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
+    Q, busy, rem, cls_serv, starts, n_sched, rows, tgt, granted, *probe = \
+        _sq_schedule(draws, cluster, state.Q, busy, rem, state.cls,
+                     consts=consts, S=min(cfg.s_max, cluster.M),
+                     variant=variant, pod=pod, speed=speed, scen=scen,
+                     tcfg=tcfg)
+    if tcfg is not None:
+        tlm.ring_pop(tele, tcfg, tgt, granted, rows)
     mask, clipped = _arrival_batch(draws, a_max)
     if cfg.route_mode == "sequential":
-        Q = _jsq_route_sequential(draws, Q, mask)
+        Q, sel = _jsq_route_sequential(draws, Q, mask)
     else:
-        Q3, _W, _sel, _scls, _val = route_commit(
+        Q3, _W, sel, _scls, _val = route_commit(
             torch.nn.functional.pad(Q[..., None], (0, 2)), mask,
             consts.unit_inv, cand_idx=draws.locals_,
             cand_cls=consts.zero_cls, cand_valid=consts.one_valid)
         Q = Q3[..., 0]
+    if tcfg is not None:
+        tlm.ring_push(tele, tcfg, sel, mask, t)
 
     busy_n = busy.sum(dim=-1).to(_F)
     Ns = Q.sum(dim=-1).to(_F) + busy_n
@@ -1052,6 +1150,21 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
                 comp=completed.sum(dim=-1).to(_F), starts=starts,
                 routed=torch.zeros_like(starts), busy_n=busy_n, routes=arr,
                 scheds=n_sched, measure=measure)
+    if tcfg is not None:
+        # workload proxy: queued work at the local rate (JSQ queues are
+        # local to their server); drained servers contribute 0
+        if speed is None:
+            inv_l = safe_inv_rates(consts.rates)[LOCAL]
+        else:
+            inv_l = safe_inv_rates(speed[..., LOCAL] * consts.rates[LOCAL])
+        inv_l = torch.where(torch.isfinite(inv_l), inv_l, 0.0)
+        zero = torch.zeros_like(Ns)
+        tlm.collect_step(
+            tele, tcfg, t=t, T=cfg.T, N=Ns,
+            q_mass=torch.stack([Q.sum(dim=-1).to(_F), zero, zero], dim=-1),
+            qlen=Q, workload=Q.to(_F) * inv_l, arrivals=arr, clipped=clipped,
+            completions=completed.sum(dim=-1), busy_n=busy_n,
+            probe=probe[0] or tlm.ZERO_PROBE)
     return SQState(Q, busy, rem, cls_serv), sums
 
 
@@ -1064,13 +1177,16 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
 def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
                cluster: Cluster, cfg: SimConfig, consts: StepConsts,
                a_max: int, measure: bool, in_half2: bool,
-               speed: Optional[torch.Tensor] = None, scen=None):
+               speed: Optional[torch.Tensor] = None, scen=None, t: int = 0,
+               tele: Optional[tlm.Telemetry] = None,
+               tcfg: Optional[tlm.TelemetryConfig] = None):
     """One slot of FCFS in every cell: up to G = min(s_max, M) idle
     servers, in the random order of ``draws.rank``, each grab the head
     task; the grabbed task's replicas are sampled at dequeue (iid of
     everything else, so the law is the same).  With ``speed``, a server
     with every tier down is not idle, and one whose tier for the task's
-    class is down leaves it queued.  Launches no kernel."""
+    class is down leaves it queued.  Launches no kernel.  Telemetry: the
+    windows only (no per-task identity to keep in a ring)."""
     G = min(cfg.s_max, cluster.M)
     N = state.busy.shape[0]
     if speed is not None:
@@ -1109,6 +1225,13 @@ def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
                 clipped=clipped, comp=completed.sum(dim=-1).to(_F),
                 starts=starts, routed=torch.zeros_like(starts), busy_n=busy_n,
                 routes=zero, scheds=grant.sum(dim=-1).to(_F), measure=measure)
+    if tcfg is not None:
+        tlm.collect_step(
+            tele, tcfg, t=t, T=cfg.T, N=Ns,
+            q_mass=torch.stack([C.to(_F), zero, zero], dim=-1),
+            qlen=C[:, None], workload=None, arrivals=mask.sum(dim=-1),
+            clipped=clipped, completions=completed.sum(dim=-1), busy_n=busy_n,
+            probe=tlm.ZERO_PROBE)
     return FCFSState(C, busy, rem, cls), sums
 
 
@@ -1169,15 +1292,16 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
 def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
          rates: Rates, cfg: SimConfig, pod: Optional[PodSpec],
          a_max: int, cells: int, scen: Optional[ScenarioData] = None,
-         homo: bool = True, size=None) -> RawSums:
-    """The T-slot loop over ``cells`` cells; returns the raw accumulators,
-    each with a leading [cells].  ``draw(t)`` gives slot t's draws of every
-    cell.  ``scen`` is one ScenarioData all cells share, or a stacked one
-    of S scenarios whose row s the cells s * cells / S .. (s + 1) * cells /
-    S - 1 read.  Unless ``homo``, each slot reads its speed from
-    ``speed_at(scen, t)`` (and the BP family its [M, 3] or [cells, M, 3]
-    inverse rates), all on the device.  ``size``: the cells' size law
-    (``_task_work``)."""
+         homo: bool = True, size=None,
+         tcfg: Optional[tlm.TelemetryConfig] = None):
+    """The T-slot loop over ``cells`` cells; returns (raw accumulators,
+    telemetry or None), each leaf with a leading [cells].  ``draw(t)``
+    gives slot t's draws of every cell.  ``scen`` is one ScenarioData all
+    cells share, or a stacked one of S scenarios whose row s the cells s *
+    cells / S .. (s + 1) * cells / S - 1 read.  Unless ``homo``, each slot
+    reads its speed from ``speed_at(scen, t)`` (and the BP family its [M,
+    3] or [cells, M, 3] inverse rates), all on the device.  ``size``: the
+    cells' size law (``_task_work``).  ``tcfg``: collect telemetry."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
     rate_vec = rates.as_array(dev)
@@ -1206,6 +1330,10 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
             state = FCFSState.zero(M, dev, cells)
             step = functools.partial(_fcfs_step, consts=consts, **kw)
     sums = RawSums.zero(dev, cells)
+    tele = None
+    if tcfg is not None:
+        tele = tlm.zero_telemetry(tcfg, M, family, device=dev, cells=cells)
+        step = functools.partial(step, tele=tele, tcfg=tcfg)
     slot = {"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp" else {}
     for t in range(cfg.T):
         if not homo:
@@ -1218,8 +1346,8 @@ def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
             if family == "bp":      # inv_rate_matrix(rates, speed)
                 slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
         state, sums = step(state, sums, draw(t), measure=t >= cfg.warmup,
-                           in_half2=t >= half2_from, **slot)
-    return sums
+                           in_half2=t >= half2_from, t=t, **slot)
+    return sums, tele
 
 
 def _cell_draws(gen: torch.Generator, cluster: Cluster, rates: Rates,
@@ -1234,12 +1362,13 @@ def _cell_draws(gen: torch.Generator, cluster: Cluster, rates: Rates,
 
 def _run_cells(algo: str, cluster: Cluster, rates: Rates, cfg: SimConfig,
                pod: Optional[PodSpec], a_max: int, scen: ScenarioData,
-               lam, n_seeds: int, seed0: int, homo: bool) -> RawSums:
+               lam, n_seeds: int, seed0: int, homo: bool, tcfg=None):
     """Every cell (s, k, l) of ``lam`` [S][L] (arrival rates, Python
     floats) x ``n_seeds`` seeds in one slot loop, cell index (s * n_seeds
     + k) * L + l.  ``scen``: one ScenarioData (S = 1) or a stacked one of S
     rows.  Seed k draws from a generator seeded ``seed0 + k`` on the
-    scenario's device.  Returns RawSums with a leading [S * n_seeds * L]."""
+    scenario's device.  Returns (RawSums, Telemetry or None), every leaf
+    with a leading [S * n_seeds * L]."""
     dev = scen.base_speed.device
     rows = ([scenario_row(scen, s) for s in range(len(lam))]
             if scen.base_speed.ndim == 2 else [scen])
@@ -1258,7 +1387,39 @@ def _run_cells(algo: str, cluster: Cluster, rates: Rates, cfg: SimConfig,
         size = SizeLaw(col("size_mu"), col("size_sigma"))
     return _run(GridDraws(sources), dev, algo=algo, cluster=cluster,
                 rates=rates, cfg=cfg, pod=pod, a_max=a_max,
-                cells=len(sources), scen=scen, homo=homo, size=size)
+                cells=len(sources), scen=scen, homo=homo, size=size, tcfg=tcfg)
+
+
+def _grid_leaves(x, shape: tuple):
+    """A tuple of [cells, ...] leaves (None kept) with the cell axis
+    reshaped to the grid's ``shape``."""
+    return type(x)(*(None if v is None else v.reshape(shape + v.shape[1:])
+                     for v in x))
+
+
+def _simulate(algo, cluster, rates, load, key, cfg, pod, scenario, pad,
+              a_max, device, draws, tcfg):
+    """``simulate`` and ``simulate_with_telemetry``: (SimResult, Telemetry
+    of the one cell, or None)."""
+    family = _family(algo)
+    dev = resolve_device(device)
+    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
+    lam = float(load) * lam_cap
+    pod = _pod_for(algo, pod)
+    if a_max is None:
+        a_max = cfg.resolve_a_max(lam, float(scen.lam_shape.max()))
+    if draws is None:
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(key))
+        source = GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,
+                                        lam, scen, family)])
+    else:
+        source = lambda t: _lift(draws(t))
+    sums, tele = _run(source, dev, algo=algo, cluster=cluster, rates=rates,
+                      cfg=cfg, pod=pod, a_max=a_max, cells=1, scen=scen,
+                      homo=_rates_homogeneous(scen), size=scen, tcfg=tcfg)
+    res = summarize(_drop(sums), algo, cluster, rates, pod)
+    return res, None if tele is None else _drop(tele)
 
 
 def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
@@ -1279,24 +1440,68 @@ def simulate(algo: str, cluster: Cluster, rates: Rates, load: float,
     source replacing the default ``TorchDraws``: a callable from slot index
     to the family's draws (``SlotDraws``, ``SQDraws`` or ``FCFSDraws``) of
     the one cell, unbatched."""
-    family = _family(algo)
+    return _simulate(algo, cluster, rates, load, key, cfg, pod, scenario, pad,
+                     a_max, device, draws, None)[0]
+
+
+def simulate_with_telemetry(
+        algo: str, cluster: Cluster, rates: Rates, load: float, key,
+        cfg: SimConfig = SimConfig(), pod: Optional[PodSpec] = None,
+        scenario=None, pad=None, a_max: Optional[int] = None,
+        telemetry: tlm.TelemetryConfig = tlm.TelemetryConfig(), *,
+        device=None, draws: Optional[DrawSource] = None):
+    """``simulate`` plus the collectors; returns (SimResult, Telemetry).
+
+    The SimResult is ``simulate``'s bit for bit (the collectors take no
+    draw).  The Telemetry's tensors lie on the run's device;
+    ``repro_torch.telemetry.export`` reads them (JSONL events, windowed
+    drift, sojourn percentiles, probe summaries).  Arguments as in
+    ``simulate``."""
+    return _simulate(algo, cluster, rates, load, key, cfg, pod, scenario, pad,
+                     a_max, device, draws, telemetry)
+
+
+def simulate_auto_warmup(
+        algo: str, cluster: Cluster, rates: Rates, load: float, key,
+        cfg: SimConfig = SimConfig(), pod: Optional[PodSpec] = None,
+        scenario=None, pad=None, a_max: Optional[int] = None,
+        telemetry: tlm.TelemetryConfig = tlm.TelemetryConfig(),
+        policy: Optional[WarmupPolicy] = None, *, device=None):
+    """``simulate_with_telemetry`` plus the drift-aware auto-extend warmup.
+
+    Runs once at ``cfg.T``; then ``telemetry.export.auto_extend_warmup``
+    moves the measurement boundary forward window by window while the
+    windowed drift of the remaining tail is at least ``policy.threshold``
+    (or until its guards stop it).  Window sums are per-slot sums, so the
+    tail's statistics are those of a run measured with the later warmup;
+    nothing runs again.  Returns (SimResult, Telemetry, WarmupReport); the
+    SimResult is the run's own (configured warmup), ``simulate``'s bit for
+    bit.  A NaN drift is reported as not converged."""
+    res, tele = simulate_with_telemetry(
+        algo, cluster, rates, load, key, cfg=cfg, pod=pod, scenario=scenario,
+        pad=pad, a_max=a_max, telemetry=telemetry, device=device)
+    report = auto_extend_warmup(tele, telemetry, cfg.T, cfg.warmup,
+                                policy=WarmupPolicy() if policy is None else policy)
+    return res, tele, report
+
+
+def _grid(algo, cluster, rates, loads, n_seeds, cfg, pod, seed0, scenario,
+          pad, a_max, device, tcfg):
+    """``simulate_grid`` and ``simulate_grid_with_telemetry``: (SimResult,
+    Telemetry or None), every leaf leading by [n_seeds, n_loads]."""
     dev = resolve_device(device)
     scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
-    lam = float(load) * lam_cap
+    lam = [float(l) * lam_cap for l in loads]
     pod = _pod_for(algo, pod)
     if a_max is None:
-        a_max = cfg.resolve_a_max(lam, float(scen.lam_shape.max()))
-    if draws is None:
-        gen = key if isinstance(key, torch.Generator) else \
-            torch.Generator(device=dev).manual_seed(int(key))
-        source = GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,
-                                        lam, scen, family)])
-    else:
-        source = lambda t: _lift(draws(t))
-    sums = _run(source, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
-                pod=pod, a_max=a_max, cells=1, scen=scen,
-                homo=_rates_homogeneous(scen), size=scen)
-    return summarize(_drop(sums), algo, cluster, rates, pod)
+        a_max = cfg.resolve_a_max(float(np.max(np.asarray(lam, np.float32))),
+                                  float(scen.lam_shape.max()))
+    sums, tele = _run_cells(algo, cluster, rates, cfg, pod, a_max, scen, [lam],
+                            n_seeds, seed0, homo=_rates_homogeneous(scen),
+                            tcfg=tcfg)
+    shape = (n_seeds, len(lam))
+    res = summarize(_grid_leaves(sums, shape), algo, cluster, rates, pod)
+    return res, None if tele is None else _grid_leaves(tele, shape)
 
 
 def simulate_grid(algo: str, cluster: Cluster, rates: Rates, loads,
@@ -1311,18 +1516,23 @@ def simulate_grid(algo: str, cluster: Cluster, rates: Rates, loads,
     ``simulate(algo, ..., loads[l], seed0 + k, ..., a_max=<this grid's>)``
     bit for bit.  pad / a_max as in ``simulate`` (a_max None: sized from
     the largest load); device as in ``simulate``."""
-    dev = resolve_device(device)
-    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
-    lam = [float(l) * lam_cap for l in loads]
-    pod = _pod_for(algo, pod)
-    if a_max is None:
-        a_max = cfg.resolve_a_max(float(np.max(np.asarray(lam, np.float32))),
-                                  float(scen.lam_shape.max()))
-    sums = _run_cells(algo, cluster, rates, cfg, pod, a_max, scen, [lam],
-                      n_seeds, seed0, homo=_rates_homogeneous(scen))
-    shape = (n_seeds, len(lam))
-    return summarize(RawSums(*(x.reshape(shape + x.shape[1:]) for x in sums)),
-                     algo, cluster, rates, pod)
+    return _grid(algo, cluster, rates, loads, n_seeds, cfg, pod, seed0,
+                 scenario, pad, a_max, device, None)[0]
+
+
+def simulate_grid_with_telemetry(
+        algo: str, cluster: Cluster, rates: Rates, loads, n_seeds: int,
+        cfg: SimConfig = SimConfig(), pod: Optional[PodSpec] = None,
+        seed0: int = 0, scenario=None, pad=None, a_max: Optional[int] = None,
+        telemetry: tlm.TelemetryConfig = tlm.TelemetryConfig(), *,
+        device=None):
+    """``simulate_grid`` plus the collectors; returns (SimResult,
+    Telemetry), every leaf leading by [n_seeds, n_loads].  Each cell's
+    Telemetry equals that of the looped ``simulate_with_telemetry`` run
+    with the grid's a_max.  Reduce with ``telemetry.export.aggregate``, or
+    index one cell (``cell_view``) for its windows."""
+    return _grid(algo, cluster, rates, loads, n_seeds, cfg, pod, seed0,
+                 scenario, pad, a_max, device, telemetry)
 
 
 def sweep_grid(cluster: Cluster, rates: Rates, cfg: SimConfig, loads,
@@ -1354,7 +1564,8 @@ def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
                    n_seeds: int, cfg: SimConfig = SimConfig(),
                    pod: Optional[PodSpec] = None, seed0: int = 0,
                    scenarios=None, pad=None, a_max: Optional[int] = None,
-                   telemetry=None, devices=None, *, device=None):
+                   telemetry: Optional[tlm.TelemetryConfig] = None,
+                   devices=None, *, device=None):
     """Scenarios x seeds x loads in one slot loop (``sweep_grid``): every
     slot one ``route_commit`` launch for all S * n_seeds * L cells, each
     cell on its scenario's [M, 3] rates (the sweep never takes the
@@ -1363,16 +1574,18 @@ def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
     Seed k of every (scenario, load) cell draws from a generator seeded
     ``seed0 + k``, as ``simulate_grid`` does, so every cell equals the
     looped ``simulate_grid(algo, ..., scenario=name, pad=pad,
-    a_max=<this sweep's>)`` cell bit for bit.  ``devices``: torch devices
-    to split the scenario axis over, in contiguous chunks run one after
-    another and joined in order (default: ``device``, as in ``simulate``).
-    ``telemetry`` is not ported yet and must be None.
+    a_max=<this sweep's>)`` cell bit for bit, telemetry included.
+    ``devices``: torch devices to split the scenario axis over, in
+    contiguous chunks run one after another and joined in order (default:
+    ``device``, as in ``simulate``).  ``telemetry``: a TelemetryConfig to
+    collect, or None.
 
-    Returns ``(names, SimResult, None)``, every SimResult leaf leading by
-    [n_scenarios, n_seeds, n_loads]."""
-    if telemetry is not None:
-        raise NotImplementedError("simulate_sweep: telemetry is not ported "
-                                  "yet (ROADMAP queue A, item 5)")
+    Returns ``(names, SimResult, Telemetry or None)``, every leaf leading
+    by [n_scenarios, n_seeds, n_loads]: reduce per cell
+    (``telemetry.export.cell_view``), never across scenarios."""
+    if telemetry is not None and not isinstance(telemetry, tlm.TelemetryConfig):
+        raise TypeError(f"telemetry must be a TelemetryConfig or None, not "
+                        f"{type(telemetry).__name__}")
     devs = [resolve_device(d) for d in devices] if devices is not None \
         else [resolve_device(device)]
     names, stacked, lam, a_max = sweep_grid(cluster, rates, cfg, loads,
@@ -1386,13 +1599,18 @@ def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
         lo, hi = int(idx[0]), int(idx[-1]) + 1
         chunk = ScenarioData(*(None if x is None else x[lo:hi].to(d)
                                for x in stacked))
-        sums = _run_cells(algo, cluster, rates, cfg, pod, a_max, chunk,
-                          lam[lo:hi], n_seeds, seed0, homo=False)
-        parts.append([x.to(devs[0]) for x in sums])
+        sums, tele = _run_cells(algo, cluster, rates, cfg, pod, a_max, chunk,
+                                lam[lo:hi], n_seeds, seed0, homo=False,
+                                tcfg=telemetry)
+        parts.append((sums, tele))
     shape = (S, n_seeds, len(lam[0]))
-    sums = RawSums(*(torch.cat(xs).reshape(shape + xs[0].shape[1:])
-                     for xs in zip(*parts)))
-    return names, summarize(sums, algo, cluster, rates, pod), None
+    join = lambda xs: None if xs[0] is None else \
+        torch.cat([x.to(devs[0]) for x in xs]).reshape(shape + xs[0].shape[1:])
+    sums = RawSums(*map(join, zip(*(p[0] for p in parts))))
+    tele = None
+    if telemetry is not None:
+        tele = tlm.Telemetry(*map(join, zip(*(p[1] for p in parts))))
+    return names, summarize(sums, algo, cluster, rates, pod), tele
 
 
 def summarize(s: RawSums, algo: str, cluster: Cluster, rates: Rates,

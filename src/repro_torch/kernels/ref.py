@@ -234,20 +234,34 @@ def route_commit_cell(Q: torch.Tensor, valid: torch.Tensor,
 
 def route_commit_wseq(Q: torch.Tensor, sel: torch.Tensor, sel_cls: torch.Tensor,
                       valid: torch.Tensor, inv_rates: torch.Tensor) -> torch.Tensor:
-    """The pre-commit workload each arrival routed against: [B, M].
+    """The pre-commit workload each arrival routed against: [B, M], or
+    [N, B, M] for one batch in each of N cells (Q [N, M, 3]; sel, sel_cls,
+    valid [N, B]; inv_rates [3], [M, 3] or [N, M, 3]).
 
-    Row b is ``W0 + (commits of arrivals 0..b-1)`` — exactly what
-    route_commit scored arrival b with."""
-    M = Q.shape[0]
-    finite, _ = _finite_dead(inv_rates, M)
-    W0 = workload(Q, finite)
-    m = torch.arange(M, device=Q.device)
+    Row b is ``W0 + dW_b`` with ``W0`` in the kernel's pinned order and
+    ``dW_b`` the commits of arrivals 0..b-1 added one at a time in arrival
+    order: exactly what route_commit scored arrival b with, to the bit.  A
+    cumulative sum would let the card reassociate the adds, so the fold is
+    a loop over B, one launch an arrival for all cells at once: dW_{b+1} =
+    dW_b + (arrival b's commit at its server, 0.0 elsewhere), where adding
+    0.0 changes nothing."""
+    if Q.ndim == 2:
+        return route_commit_wseq(Q[None], sel[None], sel_cls[None], valid[None],
+                                 inv_rates if inv_rates.ndim < 3 else inv_rates[None])[0]
+    N, M = Q.shape[:2]
+    inv = inv_rates[None, None, :] if inv_rates.ndim == 1 else inv_rates
+    finite = torch.where(torch.isfinite(inv), inv, 0.0).expand(N, M, 3)
+    W0 = workload(Q, finite)                                        # [N, M]
     s = sel.to(torch.int64)
     c = sel_cls.to(torch.int64)
-    amt = finite[s, c.clamp(max=2)] * (c < 3) * valid.to(torch.bool)
-    dw = torch.zeros(M, dtype=torch.float32, device=Q.device)
-    rows = []
-    for b in range(s.shape[0]):
-        rows.append(W0 + dw)
-        dw = dw + torch.where(m == s[b], amt[b], 0.0)
-    return torch.stack(rows) if rows else W0.new_empty((0, M))
+    amt = finite.flatten(1).gather(1, s * 3 + c.clamp(max=2))
+    amt = amt * ((c < 3) & valid.to(torch.bool))
+    B = s.shape[1]
+    commit = torch.zeros((N, B, M), dtype=torch.float32, device=Q.device)
+    commit.scatter_(2, s[..., None], amt[..., None])
+    dw = torch.empty_like(commit)
+    if B:
+        dw[:, 0] = 0.0
+    for b in range(B - 1):
+        torch.add(dw[:, b], commit[:, b], out=dw[:, b + 1])
+    return W0[:, None] + dw

@@ -6,8 +6,9 @@ racks, slow cohorts, event windows with per-class multipliers), the traffic
 shape (stationary, diurnal, flash crowd, MMPP bursts) and the data
 placement (uniform or Zipf over a replica catalog), plus the per-task size
 law.  ``compose()`` folds scenarios axis by axis; ``SCENARIOS`` holds the
-reference's named registry, in its order, minus the trace-backed
-``production_day`` (ROADMAP queue A, item 6).
+reference's named registry, in its order, with the trace-backed
+``production_day`` that ``repro_torch.trace`` registers when this package
+imports it.
 
 ``realize()`` turns a scenario into tensors on the device (``build.py``):
 realization itself runs on the host in numpy, as in the reference, so the
@@ -52,5 +53,10 @@ from .build import (
     speed_trace,
     traffic_shape,
 )
+
+# trace-backed registry entries (production_day) register on import; the
+# trace package only pulls spec/build (already initialized above) at import
+# time, and its replay layer, which needs the simulator, loads lazily
+from .. import trace as _trace  # noqa: E402,F401
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,9 +1,9 @@
 """Scenario axis specs, the ``compose()`` algebra, and the named registry.
 
 Copy of ``repro.scenarios.spec`` (plain Python): the same specs, the same
-registry in the same order, minus the trace-backed ``production_day``
-entry, which the trace package registers and which is not ported yet
-(``get_scenario("production_day")`` raises ``NotImplementedError``).
+registry in the same order; the trace-backed ``production_day`` entry is
+registered by ``repro_torch.trace``, which ``repro_torch.scenarios``
+imports.
 
 A :class:`Scenario` is a product of three independent *axis specs* —
 :class:`FleetSpec` (who is slow / down, and when), :class:`TrafficSpec`
@@ -230,7 +230,6 @@ class Scenario:
 
 
 SCENARIOS: dict[str, Scenario] = {}
-TRACE_SCENARIOS = ("production_day",)   # the reference's trace-backed entries
 
 
 def register(s: Scenario) -> Scenario:
@@ -333,10 +332,6 @@ def get_scenario(s: Union[str, Scenario, None]) -> Scenario:
         return SCENARIOS["uniform"]
     if isinstance(s, Scenario):
         return s
-    if s in TRACE_SCENARIOS:
-        raise NotImplementedError(
-            f"scenario {s!r} is trace-backed: the trace package is not "
-            "ported yet (ROADMAP queue A, item 6)")
     try:
         return SCENARIOS[s]
     except KeyError:

@@ -898,3 +898,182 @@ def test_grid_cells_equal_looped_runs_on_the_card(dev, algo):
         looped = simulate_grid(algo, cl, rates, loads, 2, cfg, seed0=7, scenario=name,
                                pad=pad, a_max=a_max, device=dev)
         assert same(cell(res, (s,)), looped), name
+
+
+# ---------------------------------------------------------------------------
+# Telemetry and trace replay on the card
+# ---------------------------------------------------------------------------
+
+
+TELEMETRY_FLOAT = ("w_mean", "probe_regret")      # float reductions over M / a batch
+
+
+def assert_telemetry_close(a, b, label):
+    """The card's Telemetry against the CPU's: every leaf exact but the two
+    float reductions whose order the card chooses (w_mean, probe_regret:
+    1e-6 relative); histogram bins exact (the card's bucketize)."""
+    from repro_torch.telemetry import WINDOW_SUMS, Telemetry
+
+    for name, x, y in zip(Telemetry._fields, a, b):
+        assert (x is None) == (y is None), (label, name)
+        if x is None:
+            continue
+        x, y = x.cpu(), y.cpu()
+        if name == "win":
+            for c, ch in enumerate(WINDOW_SUMS):
+                if ch in TELEMETRY_FLOAT:
+                    assert torch.allclose(x[..., c], y[..., c], rtol=1e-6, atol=0), (label, ch)
+                else:
+                    assert torch.equal(x[..., c], y[..., c]), (label, ch)
+        else:
+            assert torch.equal(x, y), (label, name)
+
+
+@pytest.mark.parametrize("scenario", ["uniform", "slow_rack"])
+@pytest.mark.parametrize("mode", ["batched", "sequential"])
+@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod",
+                                  "balanced_pandas_randomtie", "jsq_maxweight",
+                                  "jsq_maxweight_pod", "jsq_priority", "fcfs"])
+def test_telemetry_cuda_path_equals_cpu_path_on_shared_draws(dev, algo, mode, scenario):
+    """simulate_with_telemetry on the card against the CPU path, fed the
+    same draws: the SimResult bit for bit, the Telemetry as
+    ``assert_telemetry_close`` says; batched BP and SQ launch route_commit
+    once a slot."""
+    from repro_torch.core import simulate_with_telemetry
+    from repro_torch.scenarios import realize
+    from repro_torch.telemetry import TelemetryConfig
+
+    cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
+    cfg = SimConfig(T=400, warmup=100, route_mode=mode)
+    scen, lam_cap = realize(scenario, cl, rates, cfg.T, device="cpu")
+    load = 0.15 if algo == "fcfs" else 0.9
+    pod = _pod_for(algo, None)
+    a_max = cfg.resolve_a_max(load * lam_cap)
+    lam_t = torch.tensor(load * lam_cap, dtype=torch.float32) * scen.lam_shape
+    tcfg = TelemetryConfig(n_windows=16)
+    out = []
+    for run_dev in ("cpu", dev):
+        src = TorchDraws(torch.Generator().manual_seed(9), cl, rates, cfg, pod,
+                         a_max, lam_t, _family(algo), scen)
+
+        def draw(t, src=src, run_dev=run_dev):
+            d = src(t)
+            return type(d)(*(None if x is None else x.to(run_dev) for x in d))
+        tk.reset_launch_counts()
+        out.append(simulate_with_telemetry(algo, cl, rates, load, 0, cfg,
+                                           scenario=scenario, a_max=a_max,
+                                           telemetry=tcfg, device=run_dev, draws=draw))
+    launches = 0 if algo == "fcfs" or mode == "sequential" else cfg.T
+    assert sum(tk.LAUNCHES.values()) == launches
+    (r_cpu, t_cpu), (r_gpu, t_gpu) = out
+    for name, a, b in zip(r_cpu._fields, r_cpu, r_gpu):
+        assert torch.equal(a, b.cpu()) or (a.isnan().all() and b.isnan().all()), name
+    assert_telemetry_close(t_cpu, t_gpu, (algo, mode, scenario))
+
+
+@pytest.mark.parametrize("scenario", ["uniform", "slow_rack", "network_degraded"])
+def test_full_bp_probe_rank_is_zero_on_the_card(dev, scenario):
+    """Full Balanced-Pandas is the O(M) oracle: on the card every batched
+    decision ranks 0 against the workloads the kernel scored it with, on a
+    heterogeneous fleet too (non-integer inverse rates)."""
+    from repro_torch.core import simulate_with_telemetry
+    from repro_torch.telemetry import probe_summary
+
+    cl, rates = Cluster(M=100, K=10), Rates(0.01, 0.005, 0.002)
+    cfg = SimConfig(T=1500, warmup=300, route_mode="batched")
+    _, tele = simulate_with_telemetry("balanced_pandas", cl, rates, 0.9, 3, cfg,
+                                      scenario=scenario, device=dev)
+    s = probe_summary(tele)
+    assert s["decisions"] > 1000
+    assert s["mean_rank"] == 0.0 and s["mean_regret"] == 0.0
+
+
+def _replay_engines(dev, algo, T, chunk, n_tasks):
+    from repro_torch.telemetry import TelemetryConfig
+    from repro_torch.trace import ReplayEngine, production_day
+
+    cl, rates = Cluster(M=24, K=4), Rates(0.05, 0.025, 0.01)
+    kw = dict(cfg=SimConfig(T=T, warmup=T // 5), algo=algo, chunk_slots=chunk,
+              telemetry=TelemetryConfig(n_windows=16))
+    log = production_day(n_tasks=n_tasks, seed=5)
+    return (ReplayEngine(log, cl, rates, device="cpu", **kw),
+            ReplayEngine(log, cl, rates, device=dev, **kw))
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod"])
+def test_replay_cuda_equals_cpu_given_the_same_draws(dev, algo):
+    """Five chunks (odd, so both device buffers are reused across the
+    pipeline's turns): the card's replay, its chunks copied on the side
+    stream into two buffers, equals the CPU's replay fed the same draws (made
+    on the CPU) bit for bit, telemetry included; route_commit launched once
+    a padded slot."""
+    from repro_torch.trace.replay import TorchReplayDraws
+
+    cpu, gpu = _replay_engines(dev, algo, T=5 * 64 - 7, chunk=64, n_tasks=900)
+    assert gpu.n_chunks == 5
+    results = []
+    for eng in (cpu, gpu):
+        src = TorchReplayDraws(torch.Generator().manual_seed(2), eng.cluster, eng.rates,
+                               eng.cfg, eng.pod, float(eng.scen.size_sigma) > 0, "cpu")
+
+        def draws(c, locals_c, cls_c, src=src, d=eng.device):
+            x = src(c, locals_c.cpu(), cls_c.cpu())
+            return type(x)(*(None if v is None else v.to(d) for v in x))
+        tk.reset_launch_counts()
+        results.append(eng.run(draws=draws))
+    assert sum(tk.LAUNCHES.values()) == gpu.n_chunks * gpu.chunk_slots
+    a, b = results
+    assert a.routed_tasks == b.routed_tasks == 900
+    for name, x, y in zip(a.result._fields, a.result, b.result):
+        assert torch.equal(x, y.cpu()) or (x.isnan().all() and y.isnan().all()), name
+    for name, x, y in zip(a.sums._fields, a.sums, b.sums):
+        assert torch.equal(x, y.cpu()), name
+    assert_telemetry_close(a.telemetry, b.telemetry, algo)
+
+
+def test_replay_agrees_with_simulator_on_production_day(dev):
+    """The reference's acceptance check (tests/test_trace.py), on the card:
+    replay's mean delay, averaged over 8 seeds, within 5% of the
+    simulator's 16-seed grid on the same lowered scenario, at the frozen
+    configuration (M=24, T=30 000, production_day(12 960) == load 0.45)."""
+    from repro_torch.core import simulate_grid
+    from repro_torch.trace import ReplayEngine, production_day, scenario_from_trace
+
+    cluster, rates = Cluster(M=24, K=4), Rates()
+    cfg = SimConfig(T=30_000, warmup=6_000)
+    log = production_day(n_tasks=12_960)
+    eng = ReplayEngine(log, cluster, rates, cfg=cfg, chunks_per_server=12, device=dev)
+    assert eng.load == pytest.approx(0.45, abs=1e-6)
+    replay = np.mean([float(eng.run(seed=s).result.mean_completion_norm)
+                      for s in range(8)])
+    scn = scenario_from_trace(log, chunks_per_server=12, seed=0)
+    grid = simulate_grid("balanced_pandas_pod", cluster, rates, [eng.load], n_seeds=16,
+                         cfg=cfg, scenario=scn, device=dev)
+    sim = float(grid.mean_completion_norm[:, 0].mean())
+    rel = abs(replay - sim) / sim
+    assert rel < 0.05, f"replay {replay:.4f} vs sim {sim:.4f}: rel {rel:.4f}"
+
+
+def test_telemetry_grid_cells_equal_looped_runs_on_the_card(dev):
+    """A BP-Pod grid with telemetry (2 seeds x 2 loads) on the card: each
+    cell's Telemetry equals its looped run's to the bit."""
+    from repro_torch.core import simulate_grid_with_telemetry, simulate_with_telemetry
+    from repro_torch.scenarios import realize
+    from repro_torch.telemetry import Telemetry, TelemetryConfig
+
+    cl, rates = Cluster(M=20, K=4), Rates(0.1, 0.05, 0.02)
+    cfg = SimConfig(T=300, warmup=75, route_mode="batched")
+    loads, tcfg = (0.45, 0.85), TelemetryConfig(n_windows=8)
+    _, tele = simulate_grid_with_telemetry("balanced_pandas_pod", cl, rates, loads, 2,
+                                           cfg, seed0=7, telemetry=tcfg, device=dev)
+    scen, cap = realize(None, cl, rates, cfg.T, device="cpu")
+    a_max = cfg.resolve_a_max(float(np.float32(max(loads) * cap)))
+    for k in range(2):
+        for l, load in enumerate(loads):
+            _, one = simulate_with_telemetry("balanced_pandas_pod", cl, rates, load,
+                                             7 + k, cfg, a_max=a_max, telemetry=tcfg,
+                                             device=dev)
+            cell = Telemetry(*(None if x is None else x[k, l] for x in tele))
+            for name, x, y in zip(Telemetry._fields, cell, one):
+                assert (x is None) == (y is None) and (x is None or torch.equal(x, y)), \
+                    (k, l, name)

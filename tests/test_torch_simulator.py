@@ -170,23 +170,33 @@ def test_summarize_matches_jax_on_the_same_sums(algo):
 
 
 def test_realize_uniform_matches_jax_and_rejects_other_scenarios():
-    """The uniform realization equals the reference's; the trace-backed
-    scenario, the one the port does not realize yet, is refused (every
-    other registry scenario: tests/test_torch_scenarios.py)."""
-    jscen, jcap = jrealize(get_scenario(None), CL_J, R_J, 100)
-    tscen, tcap = trealize(None, CL_T, R_T, 100, device="cpu")
-    assert tcap == jcap
-    np.testing.assert_array_equal(tscen.lam_shape.numpy(), np.asarray(jscen.lam_shape))
-    np.testing.assert_array_equal(tscen.base_speed.numpy(), np.asarray(jscen.base_speed))
-    with pytest.raises(NotImplementedError, match="A, item 6"):
-        trealize("production_day", CL_T, R_T, 100, device="cpu")
+    """The uniform realization equals the reference's, and so does the
+    trace-backed production_day's (every other registry scenario:
+    tests/test_torch_scenarios.py); an unknown name is refused."""
+    for name in (None, "production_day"):
+        jscen, jcap = jrealize(get_scenario(name), CL_J, R_J, 100)
+        tscen, tcap = trealize(name, CL_T, R_T, 100, device="cpu")
+        if name is None:
+            assert tcap == jcap
+        else:  # an LP capacity: HiGHS runs once in each package
+            assert tcap == pytest.approx(jcap, rel=1e-9, abs=0)
+        for field in ("lam_shape", "base_speed", "chunk_locals", "size_sigma"):
+            a, b = getattr(tscen, field), getattr(jscen, field)
+            assert (a is None) == (b is None), field
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=field)
+    with pytest.raises(KeyError):
+        trealize("no_such_scenario", CL_T, R_T, 100, device="cpu")
 
 
 def test_entry_point_refuses_what_is_not_ported_and_needs_a_device_choice():
+    """Every scenario is ported now: production_day runs; an unknown
+    algorithm is refused, and without a card the entry point needs
+    device='cpu'."""
     cfg = tsim.SimConfig(T=10, warmup=2, route_mode="batched")
-    with pytest.raises(NotImplementedError, match="A, item 6"):
-        tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg,
+    r = tsim.simulate("jsq_maxweight", CL_T, R_T, 0.5, 0, cfg,
                       scenario="production_day", device="cpu")
+    assert float(r.arrival_rate_hat) > 0
     with pytest.raises(ValueError):
         tsim.simulate("nope", CL_T, R_T, 0.5, 0, cfg, device="cpu")
     if not torch.cuda.is_available():

@@ -33,7 +33,7 @@ R_J, R_T = jcl.Rates(*RATES), tcl.Rates(*RATES)
 # the shapes of tests/test_sweep.py's one-program sweep
 CFG = dict(T=112, warmup=32, s_max=16)
 LOADS = (0.45, 0.85)
-PAD = tbuild.canonical_pad(CL_T)          # the port's registry: no trace entry
+PAD = tbuild.canonical_pad(CL_T)          # the port's registry, production_day too
 NAMES = ["uniform", "slow_rack", "zipf_hotspot"]
 ALGOS = tsim.ALGORITHMS + ("balanced_pandas_randomtie",)
 
@@ -237,8 +237,10 @@ def test_sweep_split_over_devices_equals_one_device():
 
 
 def test_sweep_refuses_telemetry_and_every_entry_point_needs_a_device_choice():
+    """A telemetry argument that is not a TelemetryConfig is refused (the
+    sweep's telemetry itself: tests/test_torch_telemetry_grid.py)."""
     cfg = tsim.SimConfig(route_mode="batched", **CFG)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="TelemetryConfig"):
         tsim.simulate_sweep("balanced_pandas", CL_T, R_T, LOADS, 1, cfg,
                             scenarios=["uniform"], telemetry=object(), device="cpu")
     if torch.cuda.is_available():

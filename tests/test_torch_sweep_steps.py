@@ -52,7 +52,7 @@ def test_batched_step_matches_jax_cell_by_cell(algo, mode):
 def _run(algo, mode):
     cfg_j = jsim.SimConfig(T=T, warmup=WARMUP, route_mode=mode)
     cfg_t = tsim.SimConfig(T=T, warmup=WARMUP, route_mode=mode)
-    tpad = tbuild.canonical_pad(CL_T)         # the port's registry: no trace entry
+    tpad = tbuild.canonical_pad(CL_T)         # the port's registry
     jpad = jbuild.ScenarioPad(*tpad)
     jscens = [jbuild.realize(get_scenario(n), CL_J, R_J, T, pad=jpad) for n in NAMES]
     stacked, caps = tbuild.stack_scenarios(NAMES, CL_T, R_T, T, tpad, device="cpu")
