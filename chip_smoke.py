@@ -8,7 +8,9 @@
                                      # uniform and on rack_outage; BP-Pod
                                      # grids of 1, 32 and 132 cells; BP-Pod
                                      # with telemetry at 1 and 32 cells
-                                     # beside without; the replay's slot),
+                                     # beside without; the replay's slot;
+                                     # the router's call and llama3-8b's
+                                     # decode call),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -77,6 +79,19 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      throughput within 5% of arrivals, valid events; replay tasks/s beside
      the simulator's routed tasks/s on the same lowered scenario, and the
      size law's ``_exp_f32`` against a slot.
+  7. serving: ``PodRouter`` (pod, PodSpec(2, 6), and full) at M=500 / K=10
+     and M=5000 / K=50, 200 batches of 256 requests, each retiring the one
+     routed two before: after every batch the card's sel, sel_cls, Q and W
+     equal a CPU router's fed the same draws, one route_commit launch a
+     batch, probes 11 / M a decision, microseconds a decision; then
+     ``decode_step`` at llama3-8b's width (2 layers, float32) on the card
+     against the CPU; then llama3-8b (all 32 layers, bfloat16, random init
+     on the card) serving the workload of examples/serve_pod_router.py
+     under pod and full: all 48 requests complete with 6 tokens each,
+     probes 11 / 16, one launch a submit, finite hidden states, and the
+     engine's router equal to a CPU router fed the same draws after every
+     submit and every complete; ticks, tokens/s, locality, p50 / p95,
+     decode ms a call by batch size beside its bound, peak memory.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -96,6 +111,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 peak outside tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bfloat16 dense tensor-core peak
 CSRC = "src/repro_torch/kernels/csrc/"
 FLOOR_SOURCE = Path(__file__).resolve().parent / "scripts" / "launch_floor.cu"
 FLOOR_GRIDS = ((1, 32), (132, 128))     # (blocks, threads): one warp; a block an SM
@@ -838,8 +854,8 @@ def run_simulations(dev, quick: bool) -> dict:
     runs = []
     for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
         # cut from T=40 000 (JSQ-MaxWeight-Pod: 20 000; M=5000: 10 000) to
-        # make room for the telemetry and trace phases (PERF.md §4)
-        T, warmup = (5_000, 1_250) if algo == "jsq_maxweight_pod" else (10_000, 2_500)
+        # make room for the telemetry, trace and serving phases (PERF.md §4)
+        T, warmup = 5_000, 1_250
         runs += [(algo, paper, load, T, warmup, None) for load in (0.5, 0.9)]
         runs.append((algo, big, 0.9, 5_000, 1_250, None))
     # cut from T=10 000 to keep the whole smoke under ~450 s (PERF.md §4)
@@ -987,7 +1003,7 @@ def run_grids(dev, quick: bool) -> dict:
     """(b) The grid entry points at full width, each run with the launch
     counters zeroed just before it and read just after: simulate_grid of
     BP, BP-Pod and JSQ-MaxWeight-Pod at M=500 over the PAPER preset's loads
-    x 4 seeds (32 cells, T=10 000); simulate_sweep of BP and BP-Pod at
+    x 4 seeds (32 cells, T=5 000); simulate_sweep of BP and BP-Pod at
     M=500 over the registry's 11 scenarios with uniform placement x loads
     0.45 / 0.7 / 0.9 x 4 seeds (132 cells, T=5 000); and of BP-Pod at M=100
     over the 4 Zipf scenarios x the same loads x 2 seeds (24 cells, T=10
@@ -1240,10 +1256,11 @@ TELEMETRY_RUNS = (("balanced_pandas", 0.9, None), ("balanced_pandas_pod", 0.9, N
                   ("jsq_maxweight_pod", 0.9, None), ("fcfs", 0.15, None),
                   ("balanced_pandas_pod", 0.9, "slow_rack"))
 TELEMETRY_FLOAT = ("w_mean", "probe_regret")     # float reductions the card orders
-# warmup 1 264 = 16 windows of 79 slots (the default config at T=5 000):
+# warmup 640 = 16 windows of 40 slots (the default config at T=2 500):
 # the measured slots are whole windows, so the windows' sums from window 16
-# on must equal the run's measured totals exactly
-TELEMETRY_T, TELEMETRY_WARMUP, TELEMETRY_GRID_T = 5_000, 1_264, 1_000
+# on must equal the run's measured totals exactly.  T cut from 5 000 to
+# make room for the serving phase (PERF.md §4)
+TELEMETRY_T, TELEMETRY_WARMUP, TELEMETRY_GRID_T = 2_500, 640, 1_000
 
 
 def telemetry_close(a, b) -> str:
@@ -1277,8 +1294,8 @@ def kernel_of(algo: str):
 
 
 def run_telemetry(dev) -> dict:
-    """Phase 5 at the paper's width (M=500, K=10, batched, T=5 000, warmup
-    1 264, the default TelemetryConfig): BP, BP-Pod and JSQ-MaxWeight-Pod at
+    """Phase 5 at the paper's width (M=500, K=10, batched, T=2 500, warmup
+    640, the default TelemetryConfig): BP, BP-Pod and JSQ-MaxWeight-Pod at
     load 0.9, FCFS at 0.15, BP-Pod on slow_rack at 0.9.  Each configuration
     runs ``simulate`` (without telemetry) and ``simulate_with_telemetry``,
     the launch counters zeroed before each.  Gates: the telemetry run's
@@ -1532,11 +1549,292 @@ def run_trace(dev) -> dict:
     return launches
 
 
-def profile_run(label: str, run, slots: int) -> None:
-    """torch.profiler over one call of ``run`` (``slots`` slots, warmed by
-    a first call): wall per slot, device busy time per slot, the device's
-    idle share, kernel launches per slot, route_commit's device time per
-    slot and the top kernels."""
+SERVE_FLEETS = ((500, 10), (5000, 50))   # (M replicas, K pods)
+SERVE_B, SERVE_BATCHES, SERVE_WARM = 256, 200, 10   # the complexity cell's B
+
+
+def route_fleet(dev, M: int, K: int, policy: str) -> int:
+    """Phase 7, the router at fleet width: SERVE_BATCHES batches of SERVE_B
+    requests (replica triples from ``sample_locals``), each batch retiring
+    the one routed two batches before.  After every batch the card's sel,
+    sel_cls, Q and W must equal, to the bit, those of a CPU router fed the
+    same draws (the plain ``route_commit_ref``); one route_commit launch a
+    batch; probes a decision 11 (pod) or M (full).  Prints microseconds a
+    decision: host wall of a ``route`` call over B.  Returns the launches."""
+    from repro_torch.core import Cluster, PodSpec, sample_locals
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.sched import (FleetTopology, PodRouter, SharedDraws, TorchRouterDraws,
+                                   service_rates)
+
+    fleet, rates = FleetTopology(n_replicas=M, n_pods=K), service_rates()
+    shared = SharedDraws(TorchRouterDraws(M, dev, PodSpec(2, 6)))
+    card = PodRouter(fleet, rates, policy=policy, device=dev, draws=shared)
+    cpu = PodRouter(fleet, rates, policy=policy, device="cpu", draws=shared.echo("cpu"))
+    gen = torch.Generator().manual_seed(M)
+    homes = [sample_locals(gen, Cluster(M, K), SERVE_B).numpy()
+             for _ in range(SERVE_BATCHES)]
+    routed, walls, label = [], [], f"router {policy} M={M} K={K} B={SERVE_B}"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i, h in enumerate(homes):
+        t0 = time.perf_counter()
+        sel = card.route(h)
+        walls.append(time.perf_counter() - t0)
+        if not (np.array_equal(cpu.route(h), sel)
+                and np.array_equal(cpu.last_classes, card.last_classes)):
+            fail(f"{label}: batch {i}: sel / sel_cls differ from the CPU router")
+        routed.append((sel, card.last_classes))
+        if i >= 2:
+            for r in (card, cpu):
+                r.complete(*routed[i - 2])
+        if not (torch.equal(card.Q.cpu(), cpu.Q) and torch.equal(card.W.cpu(), cpu.W)):
+            fail(f"{label}: batch {i}: Q / W differ from the CPU router")
+    name = f"route_commit_{policy}"
+    counts = dict(LAUNCHES)
+    if counts[name] != SERVE_BATCHES or sum(counts.values()) != SERVE_BATCHES:
+        fail(f"{label}: launches {counts}, expected {SERVE_BATCHES} of {name}")
+    probes = card.stats.probes / card.stats.decisions
+    if probes != (11 if policy == "pod" else M):
+        fail(f"{label}: {probes} probes a decision")
+    steady = np.array(walls[SERVE_WARM:])
+    log(f"  {label}: {SERVE_BATCHES} batches equal to the CPU router after every batch "
+        f"(sel, sel_cls, Q, W); launches={counts[name]}; probes/decision={probes:g}; "
+        f"us/decision mean={steady.mean() / SERVE_B * 1e6:.4f} "
+        f"median={np.median(steady) / SERVE_B * 1e6:.4f} (route call wall / B, batches "
+        f"{SERVE_WARM}..{SERVE_BATCHES - 1}); routed by class "
+        f"{card.stats.routed_by_class.tolist()}; Q total {int(card.Q.sum())}")
+    return counts[name]
+
+
+def to_device(tree, dev):
+    return {k: to_device(v, dev) for k, v in tree.items()} if isinstance(tree, dict) \
+        else tree.to(dev)
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) for v in tree.values()) if isinstance(tree, dict) \
+        else tree.numel() * tree.element_size()
+
+
+def decode_bound(cfg, params, B: int, S: int = 16):
+    """(least ms, bytes) of one decode call of B rows against an S-slot
+    cache: every weight the call uses read once (the layers, the final
+    norm, the head, B rows of the embedding), the cache read and written
+    once, over the memory rate; against 2 operations a weight a row at the
+    bfloat16 peak (the bytes bound it at every B here)."""
+    tok = params["embed"]["tok"]
+    head = params["embed"].get("head", tok)
+    used = tree_bytes(params["layers"]) + tree_bytes(params["final_ln"]) + tree_bytes(head)
+    row = tok[0].numel() * tok.element_size()
+    cache = 2 * 2 * cfg.n_layers * B * S * cfg.padded_kv_heads * cfg.resolved_head_dim \
+        * tok.element_size()
+    moved = used + B * row + cache
+    ops = 2 * B * (tree_bytes(params["layers"]) + tree_bytes(head)) / tok.element_size()
+    return max(moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, moved
+
+
+def check_decode_parity(dev, base_cfg) -> None:
+    """Phase 7: ``decode_step`` on the card against the port's CPU path at
+    llama3-8b's width with 2 layers in float32 (TF32 off): three steps of
+    B=4 rows at staggered positions; hidden states within 1e-4 of the
+    largest magnitude, greedy tokens equal on every row whose top two
+    logits differ by more than 1e-3 of the larger."""
+    from repro_torch.models import decode_step, init_cache, init_params, logits_fn
+
+    cfg = base_cfg.replace(n_layers=2, dtype="float32")
+    params = init_params(cfg, 7, device=dev)
+    host = to_device(params, "cpu")
+    B, S = 4, 16
+    cache = {d: init_cache(cfg, B, S, device=d) for d in (dev, "cpu")}
+    tok = torch.tensor([[11], [128000], [4096], [77]], dtype=torch.int32)
+    pos = torch.tensor([0, 3, 7, 12], dtype=torch.int32)
+    worst, compared = 0.0, 0
+    for step in range(3):
+        h_card, cache[dev] = decode_step(params, cfg, cache[dev], tok.to(dev), pos.to(dev))
+        h_cpu, cache["cpu"] = decode_step(host, cfg, cache["cpu"], tok, pos)
+        err = float((h_card.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+        worst = max(worst, err)
+        if not torch.isfinite(h_card).all() or err > 1e-4:
+            fail(f"decode parity step {step}: hidden states {err:.3e} apart (> 1e-4)")
+        l_card = logits_fn(params["embed"], h_card)[:, 0].cpu()
+        l_cpu = logits_fn(host["embed"], h_cpu)[:, 0]
+        top2 = l_cpu.topk(2, dim=-1).values
+        apart = (top2[:, 0] - top2[:, 1]) > 1e-3 * top2[:, 0].abs()
+        compared += int(apart.sum())
+        if not torch.equal(l_card.argmax(-1)[apart], l_cpu.argmax(-1)[apart]):
+            fail(f"decode parity step {step}: greedy tokens differ")
+        tok = l_cpu.argmax(-1, keepdim=True).to(torch.int32)
+        pos = pos + 1
+    log(f"  decode parity llama3-8b width, 2 layers, float32, B={B}: card against CPU "
+        f"over 3 steps: hidden max error {worst:.3e} of the largest magnitude (<= 1e-4); "
+        f"greedy tokens equal on {compared} of {3 * B} rows (the others' top two logits "
+        f"within 1e-3)")
+    del params, host, cache
+    torch.cuda.empty_cache()
+
+
+SERVE_REPLICAS, SERVE_PODS, SERVE_PREFIXES = 16, 4, 8    # examples/serve_pod_router.py
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_EVERY = 48, 4, 6, 2
+
+
+def serve_llama(dev, cfg, params, policy: str, seed: int = 0) -> int:
+    """Phase 7, the engine: the workload of examples/serve_pod_router.py
+    (16 replicas in 4 pods, 8 prefixes on 3 replicas each, 48 requests of
+    4-token prompts and max_new=6, one every 2 ticks) on the full-width
+    model.  Gates: all 48 complete with 6 tokens each in [0, padded_vocab),
+    probes a decision 11 (pod) or 16 (full), route_commit launched once a
+    submit, every hidden state finite, and the engine's router equal to a
+    CPU router fed the same draws (the plain ``route_commit_ref``) at the
+    engine's own shapes: sel and sel_cls after every submit, Q and W after
+    every submit and every complete.  Returns the launches."""
+    from unittest import mock
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.core import PodSpec
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.sched import (FleetTopology, PodRouter, SharedDraws, TorchRouterDraws,
+                                   service_rates)
+    from repro_torch.serve import Request, ServeEngine
+
+    fleet, rates = FleetTopology(n_replicas=SERVE_REPLICAS, n_pods=SERVE_PODS), service_rates()
+    label = f"serve {policy} {cfg.name} ({cfg.n_layers} layers, {cfg.dtype})"
+    shared = SharedDraws(TorchRouterDraws(seed, dev, PodSpec(2, 6)))
+    cpu = PodRouter(fleet, rates, policy=policy, device="cpu", draws=shared.echo("cpu"))
+    checks = {"route": 0, "complete": 0}
+
+    class CheckedRouter(PodRouter):
+        """The engine's router on the card, with the CPU router in step."""
+
+        def _same_state(self, what: str):
+            if not (torch.equal(self.Q.cpu(), cpu.Q) and torch.equal(self.W.cpu(), cpu.W)):
+                fail(f"{label}: after {what} {checks[what]}: Q / W differ from the CPU router")
+
+        def route(self, locals_):
+            sel = super().route(locals_)
+            if not (np.array_equal(cpu.route(locals_), sel)
+                    and np.array_equal(cpu.last_classes, self.last_classes)):
+                fail(f"{label}: submit {checks['route']}: sel / sel_cls differ from the "
+                     f"CPU router")
+            self._same_state("route")
+            checks["route"] += 1
+            return sel
+
+        def complete(self, replica_ids, classes):
+            super().complete(replica_ids, classes)
+            cpu.complete(replica_ids, classes)
+            self._same_state("complete")
+            checks["complete"] += 1
+
+    decode_ms, nonfinite = {}, [0]
+
+    def finite_decode_step(*a, **kw):
+        h, cache = decode_step(*a, **kw)
+        nonfinite[0] += int((~torch.isfinite(h)).sum())
+        return h, cache
+
+    router = CheckedRouter(fleet, rates, policy=policy, device=dev, draws=shared)
+    rng = np.random.default_rng(seed)
+    homes = {i: rng.choice(SERVE_REPLICAS, size=3, replace=False)
+             for i in range(SERVE_PREFIXES)}
+    eng = ServeEngine(cfg, params, fleet, router, homes, max_batch=4, seed=seed)
+    decode = eng._decode
+
+    def timed_decode(params, cache, tok, pos):
+        """The engine's own decode, timed by batch size."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        decode_ms.setdefault(tok.shape[0], []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    eng._decode = timed_decode
+    reqs = [Request(rid=i, prefix_id=int(rng.integers(0, SERVE_PREFIXES)),
+                    prompt=rng.integers(0, cfg.vocab, size=SERVE_PROMPT),
+                    max_new=SERVE_NEW, arrival=i * SERVE_EVERY)
+            for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    submits = 0
+    with mock.patch.object(engine_mod, "decode_step", finite_decode_step):
+        for t in range(0, SERVE_REQUESTS * SERVE_EVERY, SERVE_EVERY):
+            wave = [r for r in reqs if r.arrival == t]
+            if wave:
+                eng.tick = t
+                eng.submit(wave)
+                submits += 1
+                eng.step()
+        stats = eng.run(until_done=len(reqs), max_ticks=3000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    name = f"route_commit_{policy}"
+    if counts[name] != submits or sum(counts.values()) != submits:
+        fail(f"{label}: launches {counts}, expected {submits} of {name} (one a submit)")
+    if checks != {"route": submits, "complete": len(reqs)}:
+        fail(f"{label}: the CPU router checked {checks}, expected {submits} submits and "
+             f"{len(reqs)} completes")
+    if len(eng.done) != len(reqs) or any(
+            len(r.generated) != SERVE_NEW or not all(0 <= t < cfg.padded_vocab
+                                                    for t in r.generated)
+            for r in eng.done):
+        fail(f"{label}: {len(eng.done)} of {len(reqs)} done, or a bad token")
+    want = 11 if policy == "pod" else SERVE_REPLICAS
+    if stats.probes_per_decision != want:
+        fail(f"{label}: {stats.probes_per_decision} probes a decision, expected {want}")
+    if nonfinite[0]:
+        fail(f"{label}: {nonfinite[0]} non-finite hidden values")
+    tokens = sum(len(r.generated) for r in eng.done)
+    per_b = []
+    for B in sorted(decode_ms):
+        ms = np.array(decode_ms[B])
+        b_ms, moved = decode_bound(cfg, params, B)
+        per_b.append(f"B={B}: {len(ms)} calls, mean {ms.mean():.3f} ms, median "
+                     f"{np.median(ms):.3f} ms (bound {b_ms:.3f} ms, {moved / 1e9:.3f} GB)")
+    log(f"  {label}: {len(eng.done)} requests, {tokens} tokens in {eng.tick} ticks, "
+        f"wall {wall:.2f}s (with the CPU router's checks), tokens/s={tokens / wall:.2f}; "
+        f"locality {np.round(stats.locality, 4).tolist()}; completion ticks "
+        f"p50={stats.latency_p50:.2f} p95={stats.latency_p95:.2f}; "
+        f"probes/decision={stats.probes_per_decision:g}; launches={counts[name]} "
+        f"({submits} submits); router equal to the CPU router after {checks['route']} "
+        f"submits and {checks['complete']} completes (sel, sel_cls, Q, W); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"  {label}: decode a call: " + "; ".join(per_b))
+    return counts[name]
+
+
+def run_serving(dev) -> dict:
+    """Phase 7: the router at fleet width, then full-width llama3-8b decode
+    parity and serving.  Returns the launches."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+
+    launches = {"route_commit_full": 0, "route_commit_pod": 0}
+    for M, K in SERVE_FLEETS:
+        for policy in ("pod", "full"):
+            launches[f"route_commit_{policy}"] += route_fleet(dev, M, K, policy)
+    cfg = get("llama3_8b")
+    check_decode_parity(dev, cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = tree_bytes(params) // params["embed"]["tok"].element_size()
+    log(f"  {cfg.name}: {n / 1e9:.3f} B parameters, {tree_bytes(params) / 1e9:.3f} GB in "
+        f"{cfg.dtype}, random init on the card in {time.perf_counter() - t0:.2f}s")
+    for policy in ("pod", "full"):
+        launches[f"route_commit_{policy}"] += serve_llama(dev, cfg, params, policy)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_run(label: str, run, slots: int, unit: str = "slot") -> None:
+    """torch.profiler over one call of ``run`` (``slots`` slots, or other
+    ``unit``s, warmed by a first call): wall per slot, device busy time per
+    slot, the device's idle share, kernel launches per slot, route_commit's
+    device time per slot and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     run()                                                         # warm
@@ -1555,15 +1853,52 @@ def profile_run(label: str, run, slots: int) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     rc = sum(us for name, us in by_name.items() if "route_commit" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profile {label}, {slots} slots: "
-        f"wall/slot={wall / slots * 1e3:.4f} ms "
-        f"device_busy/slot={busy / slots * 1e3:.4f} ms "
+    log(f"  profile {label}, {slots} {unit}s: "
+        f"wall/{unit}={wall / slots * 1e3:.4f} ms "
+        f"device_busy/{unit}={busy / slots * 1e3:.4f} ms "
         f"idle_share={1 - busy / wall:.4f} "
-        f"kernels/slot={len(kern) / slots:.1f} "
-        f"route_commit_us/slot={rc / slots:.3f}")
+        f"kernels/{unit}={len(kern) / slots:.1f} "
+        f"route_commit_us/{unit}={rc / slots:.3f}")
     for name, us in top:
-        log(f"    {us / slots:9.3f} us/slot  {name[:90]}")
+        log(f"    {us / slots:9.3f} us/{unit}  {name[:90]}")
 
+
+
+def profile_serving(dev, calls: int = 50, decodes: int = 10) -> None:
+    """Where the serving path's time goes: ``calls`` route calls of
+    SERVE_B requests (pod and full, at each of SERVE_FLEETS), and
+    ``decodes`` llama3-8b decode calls (32 layers, bfloat16: decode_step,
+    logits, argmax) at B=1 and B=4 against a 16-slot cache, each under
+    torch.profiler (wall, device busy, idle share, kernels a call, top
+    kernels), the decode beside its bound."""
+    from repro_torch.configs import get
+    from repro_torch.core import Cluster, sample_locals
+    from repro_torch.models import decode_step, init_cache, init_params, logits_fn
+    from repro_torch.sched import FleetTopology, PodRouter, service_rates
+
+    for M, K in SERVE_FLEETS:
+        gen = torch.Generator().manual_seed(M)
+        homes = [sample_locals(gen, Cluster(M, K), SERVE_B).numpy() for _ in range(calls)]
+        for policy in ("pod", "full"):
+            router = PodRouter(FleetTopology(n_replicas=M, n_pods=K), service_rates(),
+                               policy=policy, device=dev)
+            profile_run(f"router {policy} M={M} K={K} B={SERVE_B}",
+                        lambda: [router.route(h) for h in homes], calls, unit="call")
+    cfg = get("llama3_8b")
+    params = init_params(cfg, 0, device=dev)
+    for B in (1, 4):
+        cache = init_cache(cfg, B, 16, device=dev)
+        tok = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        pos = torch.full((B,), 5, dtype=torch.int32, device=dev)
+
+        def run():
+            for _ in range(decodes):
+                h, _ = decode_step(params, cfg, cache, tok, pos)
+                torch.argmax(logits_fn(params["embed"], h)[:, 0], dim=-1)
+        profile_run(f"decode {cfg.name} B={B} (bound {decode_bound(cfg, params, B)[0]:.3f} "
+                    f"ms)", run, decodes, unit="call")
+    del params
+    torch.cuda.empty_cache()
 
 def profile_slots(dev, slots: int = 400) -> None:
     """Where a slot's time goes on the card (a CUDA-graph-free, eager
@@ -1669,7 +2004,8 @@ def main() -> int:
                          "(at least 5 000 slots)")
     ap.add_argument("--profile", action="store_true",
                     help="only build and time: profile where a slot's time "
-                         "goes, route_commit at every valid-prefix length, "
+                         "goes (and a route call's and a decode call's), "
+                         "route_commit at every valid-prefix length, "
                          "the snapshot kernels, the complexity table and the "
                          "tick's route -> queue_update sequence")
     args = ap.parse_args()
@@ -1701,6 +2037,7 @@ def main() -> int:
     if args.profile:
         profile_slots(dev)
         profile_telemetry(dev)
+        profile_serving(dev)
         sweep_route_commit(dev)
         time_snapshot_kernels(dev, False, floor)
         complexity_per_decision(dev, False)
@@ -1734,6 +2071,9 @@ def main() -> int:
         launches[name] += n
     log("[6] trace: production_day and ReplayEngine")
     for name, n in run_trace(dev).items():
+        launches[name] += n
+    log("[7] serving: PodRouter at fleet width, llama3-8b decode parity and ServeEngine")
+    for name, n in run_serving(dev).items():
         launches[name] += n
 
     kernels = []

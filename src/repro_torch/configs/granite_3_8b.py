@@ -1,0 +1,12 @@
+"""granite-3-8b — dense GQA decoder [hf:ibm-granite/granite-3.0-2b-base; hf]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12800, vocab=49155,
+    source="[hf:ibm-granite/granite-3.0-2b-base; hf]",
+)
+
+SMOKE = CONFIG.replace(name="granite-3-8b-smoke", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab=512)

@@ -1,0 +1,12 @@
+"""llama3-8b — dense GQA decoder, 128k vocab [arXiv:2407.21783; unverified]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=128256, rope_theta=500_000.0,
+    source="[arXiv:2407.21783; unverified]",
+)
+
+SMOKE = CONFIG.replace(name="llama3-8b-smoke", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=192, vocab=1024)

@@ -1077,3 +1077,97 @@ def test_telemetry_grid_cells_equal_looped_runs_on_the_card(dev):
             for name, x, y in zip(Telemetry._fields, cell, one):
                 assert (x is None) == (y is None) and (x is None or torch.equal(x, y)), \
                     (k, l, name)
+
+
+# -- the serving path: PodRouter and ServeEngine on the card -----------------
+
+
+def _router_pair(dev, policy, M, K, rate_matrix=None, seed=0):
+    from repro_torch.core import PodSpec
+    from repro_torch.sched import (FleetTopology, PodRouter, SharedDraws, TorchRouterDraws,
+                                   service_rates)
+
+    fleet = FleetTopology(n_replicas=M, n_pods=K)
+    shared = SharedDraws(TorchRouterDraws(seed, dev, PodSpec(2, 6)))
+    card = PodRouter(fleet, service_rates(), policy=policy, rate_matrix=rate_matrix,
+                     device=dev, draws=shared)
+    cpu = PodRouter(fleet, service_rates(), policy=policy, rate_matrix=rate_matrix,
+                    device="cpu", draws=shared.echo("cpu"))
+    return card, cpu
+
+
+@pytest.mark.parametrize("policy", ["pod", "full"])
+@pytest.mark.parametrize("operand", ["[3]", "[M,3]"])
+def test_router_on_the_card_equals_the_cpu_router(dev, policy, operand):
+    """M=500 in 10 pods, 40 batches of 64 requests, each batch retiring
+    the one routed two before: after every batch the card's sel, sel_cls,
+    Q and W equal the CPU router's (the plain route_commit) to the bit, one
+    route_commit launch a batch (at the [M, 3] operand when heterogeneous),
+    and the probes are 11 a decision (pod) or M (full)."""
+    from repro_torch.core import Cluster, sample_locals
+
+    M, K, B, n = 500, 10, 64, 40
+    rm = None
+    if operand == "[M,3]":
+        rm = np.tile(np.array([0.9, 0.45, 0.18], np.float32), (M, 1))
+        rm[:50] = 0.0                     # pod 0 drained
+        rm[50:100] *= 0.25                # pod 1 slow
+    card, cpu = _router_pair(dev, policy, M, K, rm)
+    gen = torch.Generator().manual_seed(1)
+    routed = []
+    tk.reset_launch_counts()
+    for i in range(n):
+        homes = sample_locals(gen, Cluster(M, K), B).numpy()
+        sel = card.route(homes)
+        assert np.array_equal(cpu.route(homes), sel)
+        assert np.array_equal(cpu.last_classes, card.last_classes)
+        routed.append((sel, card.last_classes))
+        if i >= 2:
+            for r in (card, cpu):
+                r.complete(*routed[i - 2])
+        assert torch.equal(card.Q.cpu(), cpu.Q) and torch.equal(card.W.cpu(), cpu.W)
+    name = f"route_commit_{policy}"
+    assert tk.LAUNCHES[name] == n and sum(tk.LAUNCHES.values()) == n
+    assert tk.MATRIX_LAUNCHES[name] == (n if rm is not None else 0)
+    assert card.stats.probes == n * B * (11 if policy == "pod" else M)
+    assert np.array_equal(card.stats.routed_by_class, cpu.stats.routed_by_class)
+    if rm is not None:
+        assert int(card.Q[:50].sum()) == 0
+
+
+def test_engine_on_the_card_equals_the_cpu_engine(dev):
+    """The float32 smoke llama3-8b serving 12 requests on 8 replicas in 2
+    pods (max_new=4): the card's engine and the CPU engine, on the same
+    weights and router draws, give every request the same replica, class,
+    ticks and tokens, and the same stats."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sched import FleetTopology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("llama3_8b", smoke=True).replace(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    to_card = lambda t: {k: to_card(v) for k, v in t.items()} if isinstance(t, dict) \
+        else t.to(dev)
+    on_card = to_card(params)
+    card_router, cpu_router = _router_pair(dev, "pod", 8, 2)
+    rng = np.random.default_rng(0)
+    homes = {i: rng.choice(8, size=3, replace=False) for i in range(4)}
+    prompts = [rng.integers(0, cfg.vocab, size=3) for _ in range(12)]
+    engines = {}
+    for name, p, router in (("card", on_card, card_router), ("cpu", params, cpu_router)):
+        eng = ServeEngine(cfg, p, FleetTopology(8, 2), router, homes, max_batch=4)
+        engines[name] = eng
+    for name in ("card", "cpu"):      # card first: the CPU router echoes its draws
+        engines[name].submit([Request(rid=i, prefix_id=i % 4, prompt=prompts[i],
+                                      max_new=4, arrival=0) for i in range(12)])
+    stats = {name: eng.run(until_done=12, max_ticks=500) for name, eng in engines.items()}
+    key = lambda r: (r.rid, r.replica, r.cls, r.start_tick, r.done_tick, r.generated)
+    assert [key(r) for r in engines["card"].done] == [key(r) for r in engines["cpu"].done]
+    assert len(engines["card"].done) == 12
+    a, b = stats["card"], stats["cpu"]
+    assert a.completions == b.completions and a.probes_per_decision == 11
+    for f in ("locality", "queue_depth_trace", "batch_size_trace", "latency_hist"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert (a.latency_p50, a.latency_p95) == (b.latency_p50, b.latency_p95)
