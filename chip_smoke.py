@@ -15,7 +15,10 @@
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
                                      # route -> queue_update sequence
-                                     # (with the launch floor)
+                                     # (with the launch floor), and a
+                                     # full-width llama3-8b train_step
+    python3 chip_smoke.py --training # phases 1 and 8 only (with --profile:
+                                     # only the train_step's profile)
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
@@ -73,14 +76,14 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      p95 / p99, probe rank and regret, slots/s with and without, peak
      memory; a 32-cell BP-Pod grid with telemetry, its corners equal to
      looped runs.  Phase 3's small-run check compares the telemetry too.
-  6. trace: production_day in the registry and simulated at M=500;
+  6. trace: production_day in the registry and simulated at M=100;
      ReplayEngine (BP, BP-Pod) at M=500, T=10 000 on a production day at
      load ~0.45: route_commit once a padded slot, every task routed,
      throughput within 5% of arrivals, valid events; replay tasks/s beside
      the simulator's routed tasks/s on the same lowered scenario, and the
      size law's ``_exp_f32`` against a slot.
   7. serving: ``PodRouter`` (pod, PodSpec(2, 6), and full) at M=500 / K=10
-     and M=5000 / K=50, 200 batches of 256 requests, each retiring the one
+     and M=5000 / K=50, 100 batches of 256 requests, each retiring the one
      routed two before: after every batch the card's sel, sel_cls, Q and W
      equal a CPU router's fed the same draws, one route_commit launch a
      batch, probes 11 / M a decision, microseconds a decision; then
@@ -92,6 +95,20 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      engine's router equal to a CPU router fed the same draws after every
      submit and every complete; ticks, tokens/s, locality, p50 / p95,
      decode ms a call by batch size beside its bound, peak memory.
+  8. training: llama3-8b at full width with its depth cut to 4 layers
+     (bfloat16, remat on, SyntheticLM batches of 8 x 2048 tokens), 10
+     ``train_step`` calls under float32 moments, float32 moments with 4
+     microbatches, and int8 moments: step ms (median from step 3),
+     tokens/s, peak memory, first and last loss, grad norm, the step's
+     bound (model FLOPs at 989 TFLOP/s or its state's bytes at 3.35 TB/s);
+     the loss finite and falling in each run.  Then one float32 step at 2
+     layers, B=1, S=1024 on the card against the CPU from the same state
+     (loss, grad norm and every gradient leaf within 1e-4), and
+     ``scripts/train_resume_check.py`` in a process of its own
+     (deterministic algorithms): the smoke-config Trainer crashed at step
+     13 and resumed equal to 20 straight steps bit for bit, its last
+     checkpoint restored byte for byte, and the shard balancer of
+     examples/train_checkpoint_restart.py.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -100,8 +117,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -837,6 +856,14 @@ def check_small_run_matches_cpu(dev):
                 f"T=600, shared draws), with telemetry off and on")
 
 
+def phase3_slots(load: float) -> tuple:
+    """(T, warmup) of a phase-3 run at ``load``: 5 000 slots where the
+    throughput gate reads the run (load <= 0.5), 2 500 at load 0.9, which
+    no throughput gate reads (cut from 5 000 for the training phase,
+    PERF.md §4)."""
+    return (5_000, 1_250) if load <= 0.5 else (2_500, 625)
+
+
 def run_simulations(dev, quick: bool) -> dict:
     """The runs at full width, each with the launch counters zeroed just
     before it and read just after: (algo, cluster, load, T, warmup,
@@ -854,10 +881,10 @@ def run_simulations(dev, quick: bool) -> dict:
     runs = []
     for algo in ("balanced_pandas", "balanced_pandas_pod", "jsq_maxweight_pod"):
         # cut from T=40 000 (JSQ-MaxWeight-Pod: 20 000; M=5000: 10 000) to
-        # make room for the telemetry, trace and serving phases (PERF.md §4)
-        T, warmup = 5_000, 1_250
-        runs += [(algo, paper, load, T, warmup, None) for load in (0.5, 0.9)]
-        runs.append((algo, big, 0.9, 5_000, 1_250, None))
+        # make room for the telemetry, trace, serving and training phases
+        # (PERF.md §4)
+        runs += [(algo, paper, load, *phase3_slots(load), None) for load in (0.5, 0.9)]
+        runs.append((algo, big, 0.9, *phase3_slots(0.9), None))
     # cut from T=10 000 to keep the whole smoke under ~450 s (PERF.md §4)
     runs += [(algo, paper, 0.5, 5_000, 1_250, None)
              for algo in ("jsq_maxweight", "jsq_priority")]
@@ -869,7 +896,7 @@ def run_simulations(dev, quick: bool) -> dict:
                ("balanced_pandas_pod", paper, 0.5, "mmpp_bursty"),
                ("jsq_maxweight_pod", paper, 0.9, "slow_rack"),
                ("fcfs", paper, 0.15, "rack_outage")]
-    runs += [(algo, cl, load, 5_000, 1_250, scenario)
+    runs += [(algo, cl, load, *phase3_slots(load), scenario)
              for algo, cl, load, scenario in hetero]
     # T=10 000: at M=100 the backlog's swing at T=5 000 is ~5% of the
     # measured arrivals, the throughput gate's width (PERF.md §4)
@@ -1414,7 +1441,7 @@ def run_telemetry(dev) -> dict:
 
 REPLAY_T = 10_000
 REPLAY_TASKS = 17_100     # production_day(REPLAY_TASKS) at M=500, T=10 000: load ~0.45
-TRACE_SIM_T = 5_000
+TRACE_SIM_T, TRACE_SIM_M = 5_000, 100
 
 
 def time_exp_f32(dev, scen) -> tuple:
@@ -1440,7 +1467,7 @@ def time_exp_f32(dev, scen) -> tuple:
 
 def run_trace(dev) -> dict:
     """Phase 6: ``production_day`` in the registry and simulated by BP-Pod
-    at M=500 (load 0.45, T=5 000); then ``ReplayEngine`` of BP and BP-Pod at
+    at M=TRACE_SIM_M (load 0.45, T=5 000); then ``ReplayEngine`` of BP and BP-Pod at
     M=500 on production_day(REPLAY_TASKS) binned into T=10 000 slots, with
     telemetry (gates: route_commit once a padded slot, every task routed,
     the mean finite, throughput within 5% of arrivals, the windows' arrivals
@@ -1455,6 +1482,9 @@ def run_trace(dev) -> dict:
     from repro_torch.trace import ReplayEngine, production_day
 
     cl, rates = Cluster(M=500, K=10), Rates(*PAPER_RATES)
+    # the registry entry at M=100: its capacity LP took 38-61 s at M=500
+    # (PERF.md §4); the replays below keep M=500
+    small = Cluster(M=TRACE_SIM_M, K=10)
     launches = {"route_commit_full": 0, "route_commit_pod": 0}
     names = scenario_names()
     if names[-1] != "production_day" or len(names) != 16:
@@ -1462,19 +1492,19 @@ def run_trace(dev) -> dict:
     T = TRACE_SIM_T
     cfg = SimConfig(T=T, warmup=T // 4, route_mode="batched")
     t0 = time.perf_counter()
-    scen, cap = realize("production_day", cl, rates, T, device="cpu")
+    scen, cap = realize("production_day", small, rates, T, device="cpu")
     realize_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    r = simulate("balanced_pandas_pod", cl, rates, 0.45, 1, cfg, scenario="production_day",
+    r = simulate("balanced_pandas_pod", small, rates, 0.45, 1, cfg, scenario="production_day",
                  device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(LAUNCHES)
     launches["route_commit_pod"] += counts["route_commit_pod"]
     f = lambda x: float(x)
-    log(f"  simulate balanced_pandas_pod production_day M=500 load=0.45 T={T}: "
+    log(f"  simulate balanced_pandas_pod production_day M={small.M} load=0.45 T={T}: "
         f"mean_completion_slots={f(r.mean_completion_slots):.4f} throughput/arrivals="
         f"{f(r.throughput) / f(r.arrival_rate_hat):.5f} clip={f(r.clip_fraction):.6f} "
         f"size_sigma={f(scen.size_sigma):.4f} lam_cap={cap:.4f} realize={realize_s:.1f}s "
@@ -1550,7 +1580,8 @@ def run_trace(dev) -> dict:
 
 
 SERVE_FLEETS = ((500, 10), (5000, 50))   # (M replicas, K pods)
-SERVE_B, SERVE_BATCHES, SERVE_WARM = 256, 200, 10   # the complexity cell's B
+# the complexity cell's B; 100 batches (200 before the training phase, PERF.md §4)
+SERVE_B, SERVE_BATCHES, SERVE_WARM = 256, 100, 10
 
 
 def route_fleet(dev, M: int, K: int, policy: str) -> int:
@@ -1830,6 +1861,245 @@ def run_serving(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width, depth cut to 4 of 32 layers (PERF.md §4): the
+# 32-layer state with float32 moments (~96 GB) does not fit one 80 GB card
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 4, 8, 2048, 10, 3
+TRAIN_RUNS = (("float32", 1), ("float32", 4), ("int8", 1))   # moments, microbatches
+PARITY_LAYERS, PARITY_S = 2, 1024
+RESUME_SCRIPT = Path(__file__).resolve().parent / "scripts" / "train_resume_check.py"
+
+
+def train_config():
+    """llama3-8b's CONFIG (bfloat16, remat on) at TRAIN_LAYERS layers."""
+    from repro_torch.configs import get
+    return get("llama3_8b").replace(n_layers=TRAIN_LAYERS)
+
+
+def train_batches(steps: int, vocab: int, S: int, B: int, seed: int = 0) -> list:
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    pipe = SyntheticLM(PipelineConfig(vocab=vocab, seq_len=S, global_batch=B, seed=seed))
+    return [pipe.next_batch() for _ in range(steps)]
+
+
+def tree_nbytes(tree) -> int:
+    from repro_torch import pytree
+    return sum(t.numel() * t.element_size() for t in pytree.leaves(tree))
+
+
+def train_bound(cfg, state, B: int, S: int):
+    """(least ms, "operations" or "bytes", model FLOPs, bytes) of one
+    train_step of B x S tokens.  Operations: 6 x the matmul parameters
+    (each layer's attention and MLP weights and the output head; the
+    embedding is a gather) x tokens, plus attention as the port computes
+    it, masked blocks included: 4 B Hp S^2 hd a layer in the forward and 10
+    in the backward (s recomputed, dp, dq, dk, dv); remat's recompute is
+    not counted.  Bytes: the state (params and moments) read once and
+    written once, the batch read once.  The larger of the two times at
+    989 TFLOP/s (dense bfloat16) and 3.35 TB/s."""
+    p = state.params
+    head = p["embed"].get("head", p["embed"]["tok"])
+    mm = sum(t.numel() for part in ("attn", "mlp")
+             for t in p["layers"][part].values()) + head.numel()
+    flops = 6 * mm * B * S + 14 * B * cfg.padded_heads * S * S \
+        * cfg.resolved_head_dim * cfg.n_layers
+    moved = 2 * tree_nbytes(state) + 2 * B * S * 4
+    ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), \
+        flops, moved
+
+
+def train_full_width(dev, cfg, batches: list, moment_dtype: str, microbatches: int) -> dict:
+    """Phase 8, one run: ``init_train_state`` on the card, then a
+    ``train_step`` a batch, each timed on the host clock between
+    synchronisations.  Gates: every loss finite, the last below the
+    first."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_step
+
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100, moment_dtype=moment_dtype)
+    label = (f"train {cfg.name} {cfg.n_layers} layers {cfg.dtype} B={TRAIN_B} S={TRAIN_S}, "
+             f"{moment_dtype} moments, microbatches={microbatches}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, ocfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b_ms, b_by, flops, moved = train_bound(cfg, state, TRAIN_B, TRAIN_S)
+    ms, losses, gnorms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg=cfg, opt_cfg=ocfg, microbatches=microbatches)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ms[TRAIN_WARM:]))
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()) or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses}, grad norms {gnorms}: not finite or not falling")
+    tok_s = TRAIN_B * TRAIN_S / med * 1e3
+    log(f"  {label}: init {init_s:.2f}s; step ms median {med:.2f} (steps {TRAIN_WARM}.."
+        f"{len(ms) - 1}; all {', '.join(f'{x:.1f}' for x in ms)}); tokens/s {tok_s:.1f}; "
+        f"bound {b_ms:.2f} ms by {b_by} ({flops / 1e12:.2f} TFLOP, {moved / 1e9:.2f} GB), "
+        f"share {b_ms / med:.4f}; peak memory {peak:.3f} GiB ({before:.3f} GiB allocated "
+        f"before the run, {tree_nbytes(state) / 2 ** 30:.3f} GiB of state); loss "
+        f"{losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; grad norm {gnorms[0]:.4f} -> {gnorms[-1]:.4f}")
+    del state
+    torch.cuda.empty_cache()
+    return {"moments": moment_dtype, "microbatches": microbatches, "step_ms": med,
+            "tokens_per_s": tok_s, "bound_ms": b_ms, "bound_by": b_by,
+            "peak_gib": peak, "first_loss": losses[0], "last_loss": losses[-1],
+            "grad_norm": gnorms[-1], "init_s": init_s}
+
+
+def check_train_parity(dev, cfg) -> None:
+    """Phase 8: one ``train_step`` on the card against the port's CPU path
+    from the same state, at llama3-8b's width with PARITY_LAYERS layers in
+    float32 (TF32 off), B=1, S=PARITY_S.  Loss and grad norm within 1e-4
+    relative; every gradient leaf within 1e-4 of its largest magnitude,
+    read from the first moment after the step (m = (1 - b1) * clip * g,
+    so the comparison is the gradients')."""
+    from repro_torch import pytree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_step
+
+    c = cfg.replace(n_layers=PARITY_LAYERS, dtype="float32")
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    card = init_train_state(c, ocfg, 1, device=dev)
+    host = pytree.tree_map(lambda t: t.cpu(), card)
+    b = train_batches(1, c.vocab, PARITY_S, 1)[0]
+    t0 = time.perf_counter()
+    card, m_card = train_step(card, b, cfg=c, opt_cfg=ocfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host, m_cpu = train_step(host, b, cfg=c, opt_cfg=ocfg)
+    t2 = time.perf_counter()
+    errs = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+            for k in ("loss", "grad_norm")}
+    worst, where = 0.0, ""
+    paths, leaves, _ = pytree.flatten_with_paths(host.opt.m)
+    for p, a, h in zip(paths, pytree.leaves(card.opt.m), leaves):
+        e = float((a.cpu() - h).abs().max() / h.abs().max().clamp_min(1e-30))
+        if e > worst:
+            worst, where = e, p
+    if max(errs.values()) > 1e-4 or worst > 1e-4:
+        fail(f"train parity: loss / grad norm {errs}, worst gradient leaf {where} {worst:.3e} "
+             f"(> 1e-4)")
+    log(f"  train parity {c.name} width, {PARITY_LAYERS} layers, float32, B=1 S={PARITY_S}: "
+        f"card against CPU from the same state: loss {float(m_card['loss']):.6f} "
+        f"({errs['loss']:.3e} apart), grad norm {float(m_card['grad_norm']):.6f} "
+        f"({errs['grad_norm']:.3e}), every gradient leaf within {worst:.3e} of its largest "
+        f"magnitude ({where}) (all <= 1e-4); card {t1 - t0:.2f}s, CPU {t2 - t1:.2f}s")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def check_train_resume() -> dict:
+    """Phase 8: ``scripts/train_resume_check.py`` in a process of its own
+    (CUBLAS_WORKSPACE_CONFIG must be set before cuBLAS starts; it sets
+    torch.use_deterministic_algorithms): the smoke-config Trainer's crash
+    at step 13 and resume from step 12 equal to 20 straight steps bit for
+    bit, the port's last checkpoint restored byte for byte, and the shard
+    balancer's straggler starved."""
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        r = subprocess.run([sys.executable, str(RESUME_SCRIPT), d], capture_output=True,
+                           text=True, timeout=600, env=env)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        fail(f"train resume check exit {r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    rs, bal = res["resume"], res["balance"]
+    log(f"  trainer llama3-8b smoke on {rs['device']}, deterministic: 20 straight steps against "
+        f"a crash at 13 and a resume from step {rs['start_step']}: losses equal bit for bit "
+        f"({rs['resumed_losses_equal']}); loss {rs['first_loss']:.4f} -> {rs['last_loss']:.4f}; "
+        f"step ms median {rs['step_ms_median']:.2f}; the port's step-20 checkpoint "
+        f"({rs['codec']}) restored, {rs['leaves_byte_equal']} of {rs['leaves']} leaves "
+        f"byte-equal; {rs['seconds']:.1f}s")
+    log(f"  shard balancer (examples/train_checkpoint_restart.py phase 3): shards "
+        f"{bal['shards']}, straggler {bal['straggler']} against a healthy mean "
+        f"{bal['healthy_mean']:.2f}, probes/decision {bal['probes_per_decision']:.2f}")
+    return res
+
+
+def run_training(dev) -> dict:
+    """Phase 8: llama3-8b at full width (TRAIN_LAYERS layers) under the
+    three optimizer settings, the float32 parity, the resume check."""
+    cfg = train_config()
+    t0 = time.perf_counter()
+    batches = train_batches(TRAIN_STEPS, cfg.vocab, TRAIN_S, TRAIN_B)
+    log(f"  SyntheticLM(vocab={cfg.vocab}, seq_len={TRAIN_S}, global_batch={TRAIN_B}): "
+        f"{TRAIN_STEPS} batches in {time.perf_counter() - t0:.2f}s on the host")
+    runs = [train_full_width(dev, cfg, batches, md, mb) for md, mb in TRAIN_RUNS]
+    check_train_parity(dev, cfg)
+    resume = check_train_resume()
+    summary = {"runs": runs, "resume": resume["resume"]["resumed_losses_equal"]}
+    log(f"  training summary: {json.dumps(summary)}")
+    return summary
+
+
+def profile_training(dev) -> None:
+    """Where a full-width train_step's time and memory go, for float32 and
+    int8 moments (microbatches 1): the gradients (forward and backward,
+    ``train_step``'s own ``_grads``) and the update (``apply_update``)
+    timed apart between synchronisations, each one's peak memory above
+    what was allocated before it, then one whole step under
+    torch.profiler."""
+    from repro_torch.optim import AdamWConfig, apply_update
+    from repro_torch.train import init_train_state, train_step
+    from repro_torch.train.train_step import _grads, _on
+
+    cfg = train_config()
+    b = train_batches(1, cfg.vocab, TRAIN_S, TRAIN_B)[0]
+    for moments in ("float32", "int8"):
+        ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100, moment_dtype=moments)
+        box = [init_train_state(cfg, ocfg, 0, device=dev)]
+        batch = _on(b, dev)
+        parts = {}
+        for rep in range(3):                      # the last of three counts
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grads, _ = _grads(box[0].params, cfg, batch, 1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            parts["grads"] = ((t1 - t0) * 1e3, (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                              base / 2 ** 30)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            params, opt, _ = apply_update(box[0].params, grads, box[0].opt, ocfg)
+            torch.cuda.synchronize()
+            parts["update"] = ((time.perf_counter() - t1) * 1e3,
+                               (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                               base / 2 ** 30)
+            box[0] = box[0]._replace(params=params, opt=opt)
+            del grads, params, opt
+        log(f"  train_step parts {cfg.name} {cfg.n_layers} layers, {moments} moments: state "
+            f"{tree_nbytes(box[0]) / 2 ** 30:.3f} GiB; " + "; ".join(
+                f"{k} {ms:.2f} ms, peak {gib:.3f} GiB above the {start:.3f} GiB allocated "
+                f"at its start" for k, (ms, gib, start) in parts.items()))
+
+        def run():
+            box[0], m = train_step(box[0], b, cfg=cfg, opt_cfg=ocfg)
+            float(m["loss"])
+        profile_run(f"train_step {cfg.name} {cfg.n_layers} layers B={TRAIN_B} S={TRAIN_S} "
+                    f"{moments} moments (bound "
+                    f"{train_bound(cfg, box[0], TRAIN_B, TRAIN_S)[0]:.2f} ms)", run, 1,
+                    unit="step")
+        del box
+        torch.cuda.empty_cache()
+
+
 def profile_run(label: str, run, slots: int, unit: str = "slot") -> None:
     """torch.profiler over one call of ``run`` (``slots`` slots, or other
     ``unit``s, warmed by a first call): wall per slot, device busy time per
@@ -2008,7 +2278,14 @@ def main() -> int:
                          "route_commit at every valid-prefix length, "
                          "the snapshot kernels, the complexity table and the "
                          "tick's route -> queue_update sequence")
+    ap.add_argument("--training", action="store_true",
+                    help="only phases 1 and 8 (with --profile: only the "
+                         "training step's profile)")
     args = ap.parse_args()
+    start = time.perf_counter()
+
+    def stage(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - start:.0f} s)")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
@@ -2034,7 +2311,15 @@ def main() -> int:
     floor = load_floor(libs[-1])
     log(f"[1] built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.training:
+        if args.profile:
+            profile_training(dev)
+        else:
+            stage("[8] training: llama3-8b at full width, parity, resume")
+            run_training(dev)
+        return 0
     if args.profile:
+        profile_training(dev)
         profile_slots(dev)
         profile_telemetry(dev)
         profile_serving(dev)
@@ -2044,37 +2329,40 @@ def main() -> int:
         tick_times(dev, False)
         return 0
 
-    log("[2] kernels against their plain versions")
+    stage("[2] kernels against their plain versions")
     rows = check_kernels(dev, args.quick)
     jsq_rows, jsq_err = check_jsq_operand(dev, args.quick)
     cell_rows, cell_err = check_batched_route_commit(dev, args.quick)
     err = check_snapshot_kernels(dev)
     snap = time_snapshot_kernels(dev, args.quick, floor)
-    log("[3] simulator")
+    stage("[3] simulator")
     check_small_run_matches_cpu(dev)
     launches = run_simulations(dev, args.quick)
-    log("[3] the grid entry points: simulate_grid and simulate_sweep")
+    stage("[3] the grid entry points: simulate_grid and simulate_sweep")
     check_grid_equals_looped(dev)
     for name, n in run_grids(dev, args.quick).items():
         launches[name] += n
-    log("[4] complexity (paper §IV-C): probes per routing decision")
+    stage("[4] complexity (paper §IV-C): probes per routing decision")
     complexity_probes()
-    log("[4] time per routing decision, O(M) weighted_argmin against O(d) "
+    stage("[4] time per routing decision, O(M) weighted_argmin against O(d) "
         "pod_route (ratio = BP / BP-Pod)")
     complexity_per_decision(dev, args.quick)
-    log("[4] the tick's route -> queue_update sequence, device time")
+    stage("[4] the tick's route -> queue_update sequence, device time")
     tick_times(dev, args.quick)
-    log("[4] snapshot routing ticks")
+    stage("[4] snapshot routing ticks")
     launches.update(routing_ticks(dev))
-    log("[5] telemetry: the collectors on the card")
+    stage("[5] telemetry: the collectors on the card")
     for name, n in run_telemetry(dev).items():
         launches[name] += n
-    log("[6] trace: production_day and ReplayEngine")
+    stage("[6] trace: production_day and ReplayEngine")
     for name, n in run_trace(dev).items():
         launches[name] += n
-    log("[7] serving: PodRouter at fleet width, llama3-8b decode parity and ServeEngine")
+    stage("[7] serving: PodRouter at fleet width, llama3-8b decode parity and ServeEngine")
     for name, n in run_serving(dev).items():
         launches[name] += n
+    stage("[8] training: llama3-8b at full width, card-CPU parity, Trainer resume")
+    run_training(dev)
+    stage("every phase passed")
 
     kernels = []
     keep = ("ms", "plain_ms", "bound_ms", "us_per_step")

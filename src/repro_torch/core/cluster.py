@@ -32,6 +32,10 @@ class Rates(NamedTuple):
         return torch.tensor([self.alpha, self.beta, self.gamma],
                             dtype=torch.float32, device=device)
 
+    def mean_slots(self, device="cpu") -> torch.Tensor:
+        """[3] float32 mean service slots per locality class (1 / rate)."""
+        return 1.0 / self.as_array(device)
+
 
 @dataclasses.dataclass(frozen=True)
 class Cluster:
@@ -57,6 +61,12 @@ class Cluster:
         """[M] int32 rack index of each server, on the CPU (servers are
         contiguous by rack)."""
         return torch.arange(self.M, dtype=torch.int32) // self.rack_size
+
+    @property
+    def same_rack(self) -> torch.Tensor:
+        """[M, M] bool same-rack incidence, on ``rack_of``'s device."""
+        r = self.rack_of
+        return r[:, None] == r[None, :]
 
 
 def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:

@@ -1,16 +1,20 @@
-"""Transformer layers of the decode path: RMSNorm, RoPE, GQA attention
-against a KV cache, SwiGLU MLP, embeddings and logits.
+"""Transformer layers: RMSNorm, RoPE, GQA attention (the flash-chunked
+train / prefill path and the decode path against a KV cache), SwiGLU MLP,
+embeddings, logits and the chunked cross-entropy.
 
-PyTorch mirror of the decode subset of ``repro.models.layers``.  Params are
-plain nested dicts of tensors stored in ``cfg.dtype``; the reference's
-float32 islands are kept at the same points (norm statistics, RoPE, the
-attention scores and softmax, SiLU), with a cast back to the activations'
-dtype after each.  The matrix products are ``torch.matmul`` on the
-weights' own layout ([d, H, hd] and friends, flattened to 2-D views).
+PyTorch mirror of ``repro.models.layers``.  Params are plain nested dicts
+of tensors stored in ``cfg.dtype``; the reference's float32 islands are
+kept at the same points (norm statistics, RoPE, the attention scores and
+softmax, SiLU, the logsumexp), with a cast back to the activations' dtype
+after each.  The matrix products are ``torch.matmul`` on the weights' own
+layout ([d, H, hd] and friends, flattened to 2-D views).
 
-The reference's ``constrain`` is a sharding annotation with nothing to do
-on one device, so it has no counterpart here; the train / prefill path
-(``attention_fwd``, ``flash_attention``) is not ported yet (ROADMAP A.8).
+``flash_attention`` is a ``torch.autograd.Function`` whose forward is the
+reference's online-softmax block loop and whose backward is its
+FlashAttention-2 recompute, block for block (``_fa_forward`` /
+``_flash_bwd``).  The reference's ``constrain`` and ``*_pspecs`` are
+sharding annotations with nothing to do on one device; they wait for
+sharding (ROADMAP A.8.3).
 """
 from __future__ import annotations
 
@@ -93,7 +97,133 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# GQA attention, decode path
+# Flash-chunked attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _to_blocks(x: torch.Tensor, n: int, blk: int) -> torch.Tensor:
+    B, S, H, hd = x.shape
+    return x.reshape(B, n, blk, H, hd).permute(1, 0, 3, 2, 4)  # [n,B,H,blk,hd]
+
+
+def _from_blocks(x: torch.Tensor, S: int) -> torch.Tensor:
+    n, B, H, blk, hd = x.shape
+    return x.permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
+
+
+def _causal_drop(qi: int, ki: int, q_block: int, kv_block: int, device):
+    """[q_block, kv_block] True where query block qi may not see key block
+    ki's position (the reference's ``~(qpos >= kpos)``)."""
+    qpos = qi * q_block + torch.arange(q_block, device=device)
+    kpos = ki * kv_block + torch.arange(kv_block, device=device)
+    return qpos[:, None] < kpos[None, :]
+
+
+def _fa_forward(q, k, v, causal: bool, q_block: int, kv_block: int):
+    """Returns (out [B,Sq,H,hd] in q's dtype, lse [nq,B,H,q_block] float32).
+    Every (q, kv) block pair is computed, masked ones included, in the
+    reference's order: the kv blocks of one q block, one after another."""
+    B, Sq, H, hd = q.shape
+    nq, nk = Sq // q_block, k.shape[1] // kv_block
+    scale = hd ** -0.5
+    qb, kb, vb = (_to_blocks(q, nq, q_block), _to_blocks(k, nk, kv_block),
+                  _to_blocks(v, nk, kv_block))
+    ninf = float("-inf")
+    outs, lses = [], []
+    for qi in range(nq):
+        qq = qb[qi].to(F32) * scale                          # [B, H, qb, hd]
+        m = torch.full((B, H, q_block), ninf, dtype=F32, device=q.device)
+        l = torch.zeros((B, H, q_block), dtype=F32, device=q.device)
+        acc = torch.zeros((B, H, q_block, hd), dtype=F32, device=q.device)
+        for ki in range(nk):
+            s = qq @ kb[ki].to(F32).transpose(-1, -2)
+            if causal:
+                s = s.masked_fill(_causal_drop(qi, ki, q_block, kv_block, q.device), ninf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - safe_m[..., None])
+            corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vb[ki].to(F32)
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(torch.where(torch.isfinite(m), m + torch.log(l), ninf))
+    return _from_blocks(torch.stack(outs), Sq), torch.stack(lses)
+
+
+def _flash_bwd(causal: bool, q_block: int, kv_block: int, res, do):
+    """FlashAttention-2 backward: recompute p per (q, kv) block pair from
+    the saved logsumexp; the forward kept only O(S*hd) residuals.  The kv
+    blocks run in the outer loop, each carrying its own dk / dv, and one
+    float32 dq accumulator collects every block's dq."""
+    q, k, v, o, lse = res
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    nq, nk = Sq // q_block, Sk // kv_block
+    scale = hd ** -0.5
+    qb = _to_blocks(q, nq, q_block).to(F32)              # [nq,B,H,qb,hd]
+    kb = _to_blocks(k, nk, kv_block).to(F32)
+    vb = _to_blocks(v, nk, kv_block).to(F32)
+    dob = _to_blocks(do, nq, q_block).to(F32)
+    Dd = (dob * _to_blocks(o, nq, q_block).to(F32)).sum(dim=-1)   # [nq,B,H,qb]
+    safe_lse = torch.where(torch.isfinite(lse), lse, 0.0)
+    dq = torch.zeros((nq, B, H, q_block, hd), dtype=F32, device=q.device)
+    dk, dv = [], []
+    for j in range(nk):
+        kk, vv = kb[j], vb[j]
+        dkj = torch.zeros((B, H, kv_block, hd), dtype=F32, device=q.device)
+        dvj = torch.zeros_like(dkj)
+        for i in range(nq):
+            qq, doi = qb[i], dob[i]
+            s = (qq * scale) @ kk.transpose(-1, -2)
+            if causal:
+                s = s.masked_fill(_causal_drop(i, j, q_block, kv_block, q.device),
+                                  float("-inf"))
+            p = torch.exp(s - safe_lse[i][..., None])         # masked -> 0
+            dp = doi @ vv.transpose(-1, -2)
+            ds = p * (dp - Dd[i][..., None]) * scale
+            dq[i] += ds @ kk
+            dkj = dkj + ds.transpose(-1, -2) @ qq
+            dvj = dvj + p.transpose(-1, -2) @ doi
+        dk.append(dkj)
+        dv.append(dvj)
+    return (_from_blocks(dq, Sq).to(q.dtype), _from_blocks(torch.stack(dk), Sk).to(k.dtype),
+            _from_blocks(torch.stack(dv), Sk).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: saves (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block):
+        out, lse = _fa_forward(q, k, v, causal, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_flash_bwd(*ctx.blocks, ctx.saved_tensors, do), None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_block: int, kv_block: int) -> torch.Tensor:
+    """Online-softmax attention with a FlashAttention-2 style backward.
+    q, k, v: [B, S, H, hd] (KV already repeated to H heads).  Activation
+    residency is O(S*hd) (out + logsumexp); the backward recomputes the
+    probability blocks.  The causal path still *computes* masked blocks,
+    as the reference does."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Sk)
+    if Sq % q_block or Sk % kv_block:
+        raise ValueError(f"blocks ({q_block}, {kv_block}) do not divide "
+                         f"the sequences ({Sq}, {Sk})")
+    return _Flash.apply(q, k, v, causal, q_block, kv_block)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (train / prefill and decode)
 # ---------------------------------------------------------------------------
 
 
@@ -139,6 +269,43 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] times w [d, H, k] -> [B, S, H, k]."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(
         *x.shape[:-1], *w.shape[1:])
+
+
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, S, Kv, hd] -> [B, S, Kv*groups, hd]."""
+    if groups == 1:
+        return x
+    B, S, Kv, hd = x.shape
+    return x[:, :, :, None, :].expand(B, S, Kv, groups, hd).reshape(B, S, Kv * groups, hd)
+
+
+def attention_fwd(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                  causal: bool = True, use_rope: bool = True,
+                  kv_override: Optional[tuple] = None,
+                  tables: Optional[tuple] = None) -> torch.Tensor:
+    """Train/prefill path.  x: [B, S, D] -> [B, S, D].  kv_override feeds
+    cross-attention (keys/values come from the encoder stream);
+    ``tables`` are ``rope_tables(positions, ...)`` when the caller has
+    them."""
+    q = _proj(x, p["wq"])
+    src = x if kv_override is None else kv_override[0]
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta, tables)
+        if kv_override is None:
+            k = rope(k, positions, cfg.rope_theta, tables)
+        else:
+            k = rope(k, kv_override[1], cfg.rope_theta)
+    k = _repeat_kv(k, cfg.padded_q_groups)
+    v = _repeat_kv(v, cfg.padded_q_groups)
+    o = flash_attention(q, k, v, causal=causal, q_block=cfg.q_block,
+                        kv_block=cfg.kv_block)
+    mask = head_mask(cfg, o.device)
+    if mask is not None:
+        o = o * mask[None, None, :, None].to(o.dtype)
+    wo = p["wo"]
+    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 class DecodeStep(NamedTuple):
@@ -230,7 +397,7 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding / logits
+# Embedding / logits / loss
 # ---------------------------------------------------------------------------
 
 
@@ -252,3 +419,25 @@ def logits_fn(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x [B, S, D] -> [B, S, V] in the weights' dtype."""
     w = p["tok"].T if "head" not in p else p["head"]
     return x @ w
+
+
+def chunked_softmax_xent(embed_p: dict, x: torch.Tensor, labels: torch.Tensor,
+                         vocab: int, chunk: int = 256) -> torch.Tensor:
+    """Mean cross-entropy, computing logits seq-chunk by seq-chunk so the
+    [B, S, V] tensor never materializes at once in the forward (the
+    float32 logits of each chunk stay for the backward, as in the
+    reference's scan).  Labels >= ``vocab`` (padding) are masked out."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunk {chunk} does not divide S={S}")
+    labels = labels.to(torch.int64)
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for c in range(0, S, chunk):
+        ll = labels[:, c:c + chunk]
+        logits = logits_fn(embed_p, x[:, c:c + chunk]).to(F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        # a padded label gathers an in-range logit that the mask drops
+        gold = logits.gather(-1, ll.clamp(max=logits.shape[-1] - 1)[..., None])[..., 0]
+        total = total + torch.where(ll < vocab, lse - gold, 0.0).sum()
+    return total / (B * S)

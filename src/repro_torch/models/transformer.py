@@ -1,30 +1,40 @@
-"""Model assembler, decode path: parameters, the KV cache and one-token
-decode of the ``dense`` family (llama3-8b's).
+"""Model assembler: parameters, the train / prefill forward, the KV cache
+and one-token decode of the ``dense`` family (llama3-8b's).
 
-PyTorch mirror of the decode subset of ``repro.models.transformer``:
+PyTorch mirror of the ``dense`` subset of ``repro.models.transformer``:
 
   init_params(cfg, key, *, device=None)      -> params (nested dict)
+  forward(params, cfg, batch)                -> (final hidden [B,S,D], aux)
   init_cache(cfg, B, S, *, device=None)      -> Cache
   decode_step(params, cfg, cache, tokens, pos) -> (hidden [B,1,D], cache')
 
 Layer parameters stay stacked ``[L, ...]`` as in the reference, and
-``decode_step`` loops over the leading axis (the reference scans it),
-with the step's positions, mask and RoPE tables made once for all layers
-and the new cache filled in place.
-The other families (``moe``, ``vlm``, ``encdec``, ``hybrid``, ``ssm``),
-``forward`` (train / prefill) and the sharding specs are not ported yet:
-they raise ``NotImplementedError`` naming ROADMAP A.8.
+``forward`` / ``decode_step`` loop over the leading axis (the reference
+scans it), with the positions and RoPE tables made once for all layers.
+With ``cfg.remat`` each layer of ``forward`` runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
+backward recomputes it from its input.
+The other families (``moe``, ``vlm``, ``encdec``, ``hybrid``, ``ssm``) are
+not ported yet: they raise ``NotImplementedError`` naming ROADMAP A.8.2;
+the sharding specs wait for A.8.3.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Union
 
 import torch
+# torch.utils.checkpoint imports torch._dynamo on its first call, and that
+# import keeps its callers' frames alive for the life of the process: the
+# first train step's whole state with them (measured: 39.6 GiB left
+# allocated on the card at llama3-8b width, 4 layers).  Imported here, it
+# holds only import-time frames.
+import torch._dynamo  # noqa: F401
+import torch.utils.checkpoint
 
 from ..core.simulator import resolve_device
-from .layers import (attend, attention_params, decode_step_consts, dtype_of,
-                     embed_lookup, embed_params, mlp, mlp_params, rmsnorm,
-                     rmsnorm_params)
+from .layers import (F32, attend, attention_fwd, attention_params,
+                     decode_step_consts, dtype_of, embed_lookup, embed_params,
+                     mlp, mlp_params, rmsnorm, rmsnorm_params, rope_tables)
 
 PORTED_FAMILIES = ("dense",)
 
@@ -34,7 +44,7 @@ def check_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP A.8); the port decodes {PORTED_FAMILIES}")
+            f"(ROADMAP A.8); the port runs {PORTED_FAMILIES}")
 
 
 def _generator(key: Union[int, torch.Generator], device) -> torch.Generator:
@@ -80,6 +90,51 @@ def init_params(cfg, key: Union[int, torch.Generator], *, device=None) -> dict:
     return params
 
 
+def _layer_views(params: dict, L: int) -> list:
+    """Layer l's parameters as views of the stacked tensors (one unbind a
+    tensor), one dict a layer."""
+    per = {(part, n): t.unbind(0) for part, sub in params["layers"].items()
+           for n, t in sub.items()}
+    views = [{} for _ in range(L)]
+    for (part, n), ts in per.items():
+        for l in range(L):
+            views[l].setdefault(part, {})[n] = ts[l]
+    return views
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` under activation checkpointing when ``cfg.remat`` is set."""
+    if not cfg.remat:
+        return fn
+    return lambda *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False)
+
+
+def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
+            collect_state: bool = False):
+    """Returns (hidden [B, S, D], aux), on the params' device.  ``batch``
+    holds ``tokens`` [B, S] int.  aux holds the MoE losses, zero for the
+    ``dense`` family; ``dispatch_groups`` and ``collect_state`` are read by
+    no ported family."""
+    check_family(cfg)
+    x = embed_lookup(params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    tables = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def body(h, lp):
+        a = attention_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                          positions, causal=True, tables=tables)
+        h = h + a
+        return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
+
+    layer = _maybe_remat(body, cfg)
+    for lp in _layer_views(params, cfg.n_layers):
+        x = layer(x, lp)
+    zero = torch.zeros((), dtype=F32, device=x.device)
+    aux = {"lb_loss": zero / cfg.n_layers, "z_loss": zero / cfg.n_layers}
+    return rmsnorm(params["final_ln"], x, cfg.norm_eps), aux
+
+
 class Cache(NamedTuple):
     """Family-polymorphic decode cache; unused fields are empty tensors."""
     k: torch.Tensor            # attn KV: [L, B, S, Kv, hd]
@@ -115,13 +170,7 @@ def decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
     x = embed_lookup(params["embed"], tokens)
     k, v = cache.k.clone(), cache.v.clone()       # the new cache, filled in place
     step = decode_step_consts(cfg, pos, k.shape[2])
-    # the layers' views, one unbind a stacked tensor
-    per = {(part, n): t.unbind(0) for part, sub in params["layers"].items()
-           for n, t in sub.items()}
-    for l in range(cfg.n_layers):
-        lp = {}
-        for (part, n), views in per.items():
-            lp.setdefault(part, {})[n] = views[l]
+    for l, lp in enumerate(_layer_views(params, cfg.n_layers)):
         x = x + attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x, cfg.norm_eps),
                        k[l], v[l], step)
         x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))

@@ -1171,3 +1171,55 @@ def test_engine_on_the_card_equals_the_cpu_engine(dev):
     for f in ("locality", "queue_depth_trace", "batch_size_trace", "latency_hist"):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
     assert (a.latency_p50, a.latency_p95) == (b.latency_p50, b.latency_p95)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(microbatches=4),
+                                dict(microbatches=2, grad_compress=True)],
+                         ids=["mb1", "mb4", "mb2-ef"])
+def test_train_step_on_the_card_equals_the_cpu(dev, kw):
+    """The float32 smoke llama3-8b, one train_step from the same state on
+    the card and on the CPU (TF32 off): loss and grad norm within 1e-4
+    relative, every gradient leaf (read from the first moment, m = (1 -
+    b1) * clip * g) within 1e-4 of its largest magnitude; with int8 error
+    feedback within one code (1/127) of it."""
+    from repro_torch import pytree
+    from repro_torch.configs import get
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("llama3_8b", smoke=True).replace(dtype="float32")
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=100)
+    host = init_train_state(cfg, ocfg, 0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(dev), host)
+    b = SyntheticLM(PipelineConfig(vocab=cfg.vocab, seq_len=64, global_batch=8)).next_batch()
+    card, m_card = train_step(card, b, cfg=cfg, opt_cfg=ocfg, **kw)
+    host, m_cpu = train_step(host, b, cfg=cfg, opt_cfg=ocfg, **kw)
+    assert pytree.leaves(card.params)[0].device.type == "cuda"
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= 1e-4 * abs(float(m_cpu[k])), k
+    tol = 1 / 127 if kw.get("grad_compress") else 1e-4
+    for a, h in zip(pytree.leaves(card.opt.m), pytree.leaves(host.opt.m)):
+        assert float((a.cpu() - h).abs().max()) <= tol * float(h.abs().max())
+
+
+def test_trainer_resume_on_the_card_is_bitwise(dev, tmp_path):
+    """scripts/train_resume_check.py in a fresh process (deterministic
+    algorithms, CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts): the
+    smoke-config Trainer crashed at step 13 and resumed from step 12 gives
+    the 20 straight steps' losses bit for bit, and its last checkpoint
+    restores byte for byte."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, str(root / "scripts" / "train_resume_check.py"),
+                        str(tmp_path)], capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["resume"]["device"].startswith("cuda") and res["resume"]["resumed_losses_equal"]
+    assert res["resume"]["leaves_byte_equal"] == res["resume"]["leaves"] == 37
