@@ -9,8 +9,9 @@
                                      # grids of 1, 32 and 132 cells; BP-Pod
                                      # with telemetry at 1 and 32 cells
                                      # beside without; the replay's slot;
-                                     # the router's call and llama3-8b's
-                                     # decode call),
+                                     # the router's call, llama3-8b's
+                                     # and deepseek-moe-16b's decode
+                                     # call),
                                      # route_commit at every valid-prefix
                                      # length, the snapshot kernels, the
                                      # complexity table and the tick's
@@ -19,6 +20,9 @@
                                      # full-width llama3-8b train_step
     python3 chip_smoke.py --training # phases 1 and 8 only (with --profile:
                                      # only the train_step's profile)
+    python3 chip_smoke.py --families # phases 1 and 9 only (with --profile:
+                                     # only the deepseek-moe-16b decode's
+                                     # profile)
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
@@ -77,7 +81,7 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      memory; a 32-cell BP-Pod grid with telemetry, its corners equal to
      looped runs.  Phase 3's small-run check compares the telemetry too.
   6. trace: production_day in the registry and simulated at M=100;
-     ReplayEngine (BP, BP-Pod) at M=500, T=10 000 on a production day at
+     ReplayEngine (BP, BP-Pod) at M=500, T=5 000 on a production day at
      load ~0.45: route_commit once a padded slot, every task routed,
      throughput within 5% of arrivals, valid events; replay tasks/s beside
      the simulator's routed tasks/s on the same lowered scenario, and the
@@ -109,6 +113,23 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      13 and resumed equal to 20 straight steps bit for bit, its last
      checkpoint restored byte for byte, and the shard balancer of
      examples/train_checkpoint_restart.py.
+  9. the other model families: deepseek-moe-16b at full width (28 layers,
+     bfloat16, random init on the card): a prefill of 2 x 512 tokens (ms,
+     aux losses), then the engine of phase 7 under the pod policy on the
+     example's workload with phase 7's gates, decode ms a call beside the
+     all-expert bound (the dispatch runs every expert at C >= 8) and the
+     active-parameter bound (6 routed + 2 shared experts a token);
+     internvl2-2b, whisper-large-v3 (heads padded to 32), zamba2-2.7b and
+     rwkv6-7b at full width and depth, one at a time: a prefill of 2 x 512
+     tokens (vlm + 256 image tokens, encdec 512 encoder frames) and 8
+     decode steps from a populated cache, finite; kimi-k2 at its smoke
+     config likewise.  Then, float32 with TF32 off, each family at full
+     width and 2 layers (zamba2 one group of 6 mamba layers and the shared
+     block; whisper 2 + 2) on the card against the CPU: a forward of 64
+     tokens and 4 decode steps within 1e-4; the prefill -> decode
+     equivalence of rwkv6, zamba2 and deepseek-moe (capacity factor 16)
+     within 1e-4; one train_step of the moe, hybrid and ssm smoke configs
+     on the card against the CPU within 1e-4.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -1439,8 +1460,10 @@ def run_telemetry(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-REPLAY_T = 10_000
-REPLAY_TASKS = 17_100     # production_day(REPLAY_TASKS) at M=500, T=10 000: load ~0.45
+# cut from T=10 000 (17 100 tasks) for the families phase (PERF.md §4): the
+# same load, 0.452 at M=500
+REPLAY_T = 5_000
+REPLAY_TASKS = 8_550      # production_day(REPLAY_TASKS) at M=500, T=5 000: load ~0.45
 TRACE_SIM_T, TRACE_SIM_M = 5_000, 100
 
 
@@ -1468,7 +1491,7 @@ def time_exp_f32(dev, scen) -> tuple:
 def run_trace(dev) -> dict:
     """Phase 6: ``production_day`` in the registry and simulated by BP-Pod
     at M=TRACE_SIM_M (load 0.45, T=5 000); then ``ReplayEngine`` of BP and BP-Pod at
-    M=500 on production_day(REPLAY_TASKS) binned into T=10 000 slots, with
+    M=500 on production_day(REPLAY_TASKS) binned into T=REPLAY_T slots, with
     telemetry (gates: route_commit once a padded slot, every task routed,
     the mean finite, throughput within 5% of arrivals, the windows' arrivals
     = the trace's tasks, valid events), a BP-Pod replay without telemetry
@@ -1708,8 +1731,8 @@ SERVE_REPLICAS, SERVE_PODS, SERVE_PREFIXES = 16, 4, 8    # examples/serve_pod_ro
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_EVERY = 48, 4, 6, 2
 
 
-def serve_llama(dev, cfg, params, policy: str, seed: int = 0) -> int:
-    """Phase 7, the engine: the workload of examples/serve_pod_router.py
+def serve_model(dev, cfg, params, policy: str, seed: int = 0, bounds=None) -> int:
+    """Phases 7 and 9, the engine: the workload of examples/serve_pod_router.py
     (16 replicas in 4 pods, 8 prefixes on 3 replicas each, 48 requests of
     4-token prompts and max_new=6, one every 2 ticks) on the full-width
     model.  Gates: all 48 complete with 6 tokens each in [0, padded_vocab),
@@ -1717,7 +1740,9 @@ def serve_llama(dev, cfg, params, policy: str, seed: int = 0) -> int:
     submit, every hidden state finite, and the engine's router equal to a
     CPU router fed the same draws (the plain ``route_commit_ref``) at the
     engine's own shapes: sel and sel_cls after every submit, Q and W after
-    every submit and every complete.  Returns the launches."""
+    every submit and every complete.  ``bounds(B)`` gives the decode
+    call's bounds, [(label, ms, bytes)] (``decode_bound`` unless given).
+    Returns the launches."""
     from unittest import mock
 
     import repro_torch.serve.engine as engine_mod
@@ -1818,12 +1843,14 @@ def serve_llama(dev, cfg, params, policy: str, seed: int = 0) -> int:
     if nonfinite[0]:
         fail(f"{label}: {nonfinite[0]} non-finite hidden values")
     tokens = sum(len(r.generated) for r in eng.done)
+    bounds = bounds or (lambda B: [("bound", *decode_bound(cfg, params, B))])
     per_b = []
     for B in sorted(decode_ms):
         ms = np.array(decode_ms[B])
-        b_ms, moved = decode_bound(cfg, params, B)
+        bs = ", ".join(f"{name} {b_ms:.3f} ms, {moved / 1e9:.3f} GB"
+                       for name, b_ms, moved in bounds(B))
         per_b.append(f"B={B}: {len(ms)} calls, mean {ms.mean():.3f} ms, median "
-                     f"{np.median(ms):.3f} ms (bound {b_ms:.3f} ms, {moved / 1e9:.3f} GB)")
+                     f"{np.median(ms):.3f} ms ({bs})")
     log(f"  {label}: {len(eng.done)} requests, {tokens} tokens in {eng.tick} ticks, "
         f"wall {wall:.2f}s (with the CPU router's checks), tokens/s={tokens / wall:.2f}; "
         f"locality {np.round(stats.locality, 4).tolist()}; completion ticks "
@@ -1855,7 +1882,7 @@ def run_serving(dev) -> dict:
     log(f"  {cfg.name}: {n / 1e9:.3f} B parameters, {tree_bytes(params) / 1e9:.3f} GB in "
         f"{cfg.dtype}, random init on the card in {time.perf_counter() - t0:.2f}s")
     for policy in ("pod", "full"):
-        launches[f"route_commit_{policy}"] += serve_llama(dev, cfg, params, policy)
+        launches[f"route_commit_{policy}"] += serve_model(dev, cfg, params, policy)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2046,6 +2073,299 @@ def run_training(dev) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the moe, vlm, encdec, hybrid and ssm families
+# ---------------------------------------------------------------------------
+
+FAM_B, FAM_S, FAM_DECODE = 2, 512, 8           # prefill rows and tokens; decode steps
+FULL_FAMILIES = ("internvl2_2b", "whisper_large_v3", "zamba2_2_7b", "rwkv6_7b")
+# card against CPU at full width, float32: the depth each runs at
+PARITY_DEPTHS = {"deepseek_moe_16b": dict(n_layers=2), "internvl2_2b": dict(n_layers=2),
+                 "whisper_large_v3": dict(n_layers=2, n_enc_layers=2),
+                 "zamba2_2_7b": dict(n_layers=6), "rwkv6_7b": dict(n_layers=2)}
+PARITY_FAM_S, PARITY_FAM_STEPS = 64, 4
+EQUIV_ARCHS, EQUIV_S = ("rwkv6_7b", "zamba2_2_7b", "deepseek_moe_16b"), 16
+TRAIN_FAMILIES = ("deepseek_moe_16b", "zamba2_2_7b", "rwkv6_7b")
+
+
+def family_batch(cfg, B: int, S: int, dev, seed: int = 0) -> dict:
+    """tokens [B, S] and the embeddings the family reads (vlm: its image
+    tokens; encdec: S encoder frames), scaled 0.02 as the reference's
+    tests draw them, on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        b["img_embeds"] = torch.randn((B, cfg.n_img_tokens, cfg.d_model), generator=gen) * 0.02
+    if cfg.family == "encdec":
+        b["enc_embeds"] = torch.randn((B, S, cfg.d_model), generator=gen) * 0.02
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def populated_cache(cfg, B: int, S: int, dev, seed: int = 0):
+    """A cache of S positions whose every field holds random values (the
+    recurrent states scaled 0.3), drawn on the host: the same on any
+    device."""
+    from repro_torch.models import init_cache
+
+    gen = torch.Generator().manual_seed(seed)
+    cache = init_cache(cfg, B, S, device="cpu")
+    return type(cache)(*(
+        (torch.randn(t.shape, generator=gen) * (0.3 if n in ("ssm", "wkv") else 1.0)
+         ).to(dtype=t.dtype, device=dev) if t.numel() else t.to(dev)
+        for n, t in zip(cache._fields, cache)))
+
+
+def prefill_tokens(cfg) -> int:
+    """FAM_S text tokens, or more where the image tokens come first: the
+    flash attention's q_block (512) must divide a sequence longer than it,
+    in the reference too, so vlm's 256 image tokens take 768 text tokens
+    (1 024 positions)."""
+    n = FAM_S + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    return FAM_S + (-n % cfg.q_block if n > cfg.q_block else 0)
+
+
+def prefill_and_decode(dev, cfg, params, label: str) -> dict:
+    """One prefill ``forward`` of FAM_B x prefill_tokens(cfg) (timed after a first
+    call), then FAM_DECODE greedy ``decode_step`` calls from a populated
+    cache at the prefill's length, each timed between synchronisations.  Gates:
+    finite hidden states of the right shapes."""
+    from repro_torch.models import decode_step, forward, logits_fn
+
+    S = prefill_tokens(cfg)
+    batch = family_batch(cfg, FAM_B, S, dev)
+    S_out = S + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    with torch.no_grad():
+        forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, aux = forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if h.shape != (FAM_B, S_out, cfg.d_model) or not torch.isfinite(h).all():
+            fail(f"{label}: prefill hidden {tuple(h.shape)} or not finite")
+        cache = populated_cache(cfg, FAM_B, S_out + FAM_DECODE, dev)
+        pos = torch.full((FAM_B,), S_out, dtype=torch.int32, device=dev)
+        tok = batch["tokens"][:, -1:]
+        ms = []
+        for _ in range(FAM_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hd, cache = decode_step(params, cfg, cache, tok, pos)
+            tok = logits_fn(params["embed"], hd)[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if hd.shape != (FAM_B, 1, cfg.d_model) or not torch.isfinite(hd).all():
+                fail(f"{label}: decode hidden {tuple(hd.shape)} or not finite")
+            pos = pos + 1
+    return {"prefill_ms": prefill_ms, "decode_ms": ms, "lb_loss": float(aux["lb_loss"]),
+            "z_loss": float(aux["z_loss"]), "S": S}
+
+
+def moe_active_bound(cfg, params, B: int, S: int = 16):
+    """(least ms, bytes) of a decode call that reads only the experts its
+    B tokens route to: every weight but the routed experts', at most
+    min(E, top-k x B) routed experts a layer, the head, B embedding rows
+    and the cache, over the memory rate."""
+    moe = params["layers"]["moe"]
+    routed = sum(tree_bytes(moe[k]) for k in ("w1", "w3", "w2"))
+    _, all_bytes = decode_bound(cfg, params, B, S)
+    moved = all_bytes - routed + routed * min(cfg.n_experts, cfg.experts_per_token * B) \
+        / cfg.n_experts
+    return moved / HBM_BYTES_PER_S * 1e3, moved
+
+
+def run_moe_serving(dev) -> dict:
+    """Phase 9, deepseek-moe-16b at full width (all 28 layers, bfloat16,
+    random init on the card): a prefill, then the engine under the pod
+    policy on the example's workload, with phase 7's gates; decode ms a
+    call beside the all-expert bound (the reference's dispatch runs every
+    expert at C >= 8) and the active-parameter bound.  Returns the
+    launches."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+
+    from repro_torch import pytree
+
+    cfg = get("deepseek_moe_16b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    log(f"  {cfg.name}: {n / 1e9:.3f} B parameters, {tree_bytes(params) / 1e9:.3f} GB "
+        f"(bfloat16, the routers float32), random init on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    r = prefill_and_decode(dev, cfg, params, cfg.name)
+    log(f"  {cfg.name} prefill B={FAM_B} S={FAM_S}: {r['prefill_ms']:.2f} ms; aux lb_loss "
+        f"{r['lb_loss']:.6f} z_loss {r['z_loss']:.6f}; decode B={FAM_B} from a populated "
+        f"cache: median {np.median(r['decode_ms']):.2f} ms a step")
+
+    def bounds(B):
+        return [("all-expert bound", *decode_bound(cfg, params, B)),
+                ("active-parameter bound", *moe_active_bound(cfg, params, B))]
+
+    launches = serve_model(dev, cfg, params, "pod", bounds=bounds)
+    log(f"  {cfg.name}: {time.perf_counter() - t0:.1f}s in all")
+    del params
+    torch.cuda.empty_cache()
+    return {"route_commit_pod": launches}
+
+
+def run_full_families(dev) -> None:
+    """Phase 9: internvl2-2b, whisper-large-v3, zamba2-2.7b and rwkv6-7b
+    at full width and depth (bfloat16, random init on the card), one at a
+    time: a prefill and FAM_DECODE decode steps; then kimi-k2 at its
+    smoke config."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+
+    for name in FULL_FAMILIES + ("kimi_k2_1t_a32b",):
+        cfg = get(name, smoke=name == "kimi_k2_1t_a32b")
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        r = prefill_and_decode(dev, cfg, params, cfg.name)
+        extra = {"vlm": f" + {cfg.n_img_tokens} image tokens",
+                 "encdec": f" + {r['S']} encoder frames"}.get(cfg.family, "")
+        enc = f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else ""
+        log(f"  {cfg.name} ({cfg.family}, {cfg.n_layers} layers{enc}, "
+            f"{tree_bytes(params) / 1e9:.3f} GB): init {init_s:.2f}s; prefill B={FAM_B} "
+            f"S={r['S']}{extra}: {r['prefill_ms']:.2f} ms; decode {FAM_DECODE} steps: median "
+            f"{np.median(r['decode_ms']):.2f} ms a step (all "
+            f"{', '.join(f'{x:.1f}' for x in r['decode_ms'])}); finite"
+            + (f"; aux lb_loss {r['lb_loss']:.6f}" if cfg.family == "moe" else "")
+            + f"; {time.perf_counter() - t0:.1f}s in all")
+        del params
+        torch.cuda.empty_cache()
+
+
+def check_family_parity(dev) -> None:
+    """Phase 9: each family at full width and PARITY_DEPTHS depth, float32
+    (TF32 off), the card against the CPU from the same parameters: a
+    ``forward`` of 2 x PARITY_FAM_S tokens and PARITY_FAM_STEPS
+    ``decode_step`` calls from the same populated cache; hidden states
+    (and the MoE aux losses) within 1e-4 of the largest magnitude."""
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, forward, init_params
+
+    for name, depth in PARITY_DEPTHS.items():
+        cfg = get(name).replace(dtype="float32", **depth)
+        t0 = time.perf_counter()
+        params = init_params(cfg, 7, device=dev)
+        host = to_device(params, "cpu")
+        errs = {}
+        with torch.no_grad():
+            b = family_batch(cfg, 2, PARITY_FAM_S, "cpu", seed=1)
+            h_card, a_card = forward(params, cfg, to_device(b, dev))
+            h_cpu, a_cpu = forward(host, cfg, b)
+            errs["forward"] = float((h_card.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+            if cfg.family == "moe":
+                errs["aux"] = max(abs(float(a_card[k]) - float(a_cpu[k])) / abs(float(a_cpu[k]))
+                                  for k in a_cpu)
+            S_out = h_cpu.shape[1]
+            cpu_cache = populated_cache(cfg, 2, S_out + PARITY_FAM_STEPS, "cpu", 2)
+            card_cache = populated_cache(cfg, 2, S_out + PARITY_FAM_STEPS, dev, 2)
+            pos = torch.tensor([S_out, S_out - 9], dtype=torch.int32)
+            tok = b["tokens"][:, -1:]
+            for step in range(PARITY_FAM_STEPS):
+                hc, card_cache = decode_step(params, cfg, card_cache, tok.to(dev), pos.to(dev))
+                hh, cpu_cache = decode_step(host, cfg, cpu_cache, tok, pos)
+                errs[f"decode {step}"] = float((hc.cpu() - hh).abs().max() / hh.abs().max())
+                tok, pos = (tok * 7 + 3) % cfg.vocab, pos + 1
+        worst = max(errs.values())
+        if not torch.isfinite(h_card).all() or worst > 1e-4:
+            fail(f"family parity {name}: {errs} (> 1e-4)")
+        log(f"  parity {cfg.name} ({cfg.family}) full width, {depth}, float32: card against "
+            f"CPU, forward S={PARITY_FAM_S} {errs['forward']:.3e}"
+            + (f", aux {errs['aux']:.3e}" if "aux" in errs else "")
+            + f", {PARITY_FAM_STEPS} decode steps <= "
+            f"{max(v for k, v in errs.items() if k.startswith('decode')):.3e} of the largest "
+            f"magnitude (<= 1e-4); {time.perf_counter() - t0:.1f}s")
+        del params, host
+        torch.cuda.empty_cache()
+
+
+def check_prefill_decode_equivalence(dev) -> None:
+    """Phase 9, the reference's property (tests/test_models.py:64-86) on
+    the card: a float32 ``forward`` over EQUIV_S tokens equals EQUIV_S
+    ``decode_step`` calls from an empty cache, within 1e-4 of the largest
+    magnitude, at full width (2 layers; zamba2 one group of 6 mamba layers
+    and the shared block), remat off, capacity factor 16 (no drop)."""
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    for name in EQUIV_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get(name).replace(remat=False, dtype="float32", capacity_factor=16.0,
+                                **PARITY_DEPTHS[name])
+        params = init_params(cfg, 2, device=dev)
+        tokens = family_batch(cfg, 2, EQUIV_S, dev, seed=3)["tokens"]
+        with torch.no_grad():
+            h_fwd, _ = forward(params, cfg, {"tokens": tokens})
+            cache = init_cache(cfg, 2, EQUIV_S, device=dev)
+            hs = []
+            for t in range(EQUIV_S):
+                h, cache = decode_step(params, cfg, cache, tokens[:, t:t + 1],
+                                       torch.full((2,), t, dtype=torch.int32, device=dev))
+                hs.append(h[:, 0])
+        err = float((torch.stack(hs, 1) - h_fwd).abs().max() / h_fwd.abs().max())
+        if not err < 1e-4:
+            fail(f"prefill -> decode {name}: {err:.3e} apart (>= 1e-4)")
+        log(f"  prefill -> decode {cfg.name} full width, {PARITY_DEPTHS[name]}, float32: "
+            f"forward over {EQUIV_S} tokens against {EQUIV_S} decode steps {err:.3e} "
+            f"(< 1e-4); {time.perf_counter() - t0:.1f}s")
+        del params
+        torch.cuda.empty_cache()
+
+
+def check_family_train_parity(dev) -> None:
+    """Phase 9: one float32 ``train_step`` of the moe, hybrid and ssm
+    families at smoke width, the card against the CPU from the same
+    state: loss, grad norm and every gradient leaf (read from the first
+    moment) within 1e-4, as phase 8's parity."""
+    from repro_torch import pytree
+    from repro_torch.configs import get
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_step
+
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    for name in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get(name, smoke=True).replace(dtype="float32")
+        card = init_train_state(cfg, ocfg, 1, device=dev)
+        host = pytree.tree_map(lambda t: t.cpu(), card)
+        b = train_batches(1, cfg.vocab, 64, 4)[0]
+        card, m_card = train_step(card, b, cfg=cfg, opt_cfg=ocfg)
+        host, m_cpu = train_step(host, b, cfg=cfg, opt_cfg=ocfg)
+        keys = ("loss", "grad_norm", "lb_loss", "z_loss")
+        errs = {k: abs(float(m_card[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30)
+                for k in keys if float(m_cpu[k]) != 0.0}
+        worst, where = 0.0, ""
+        paths, leaves, _ = pytree.flatten_with_paths(host.opt.m)
+        for p, a, h in zip(paths, pytree.leaves(card.opt.m), leaves):
+            e = float((a.cpu() - h).abs().max() / h.abs().max().clamp_min(1e-30))
+            if e > worst:
+                worst, where = e, p
+        if max(errs.values()) > 1e-4 or worst > 1e-4:
+            fail(f"train parity {name}: {errs}, worst gradient leaf {where} {worst:.3e}")
+        log(f"  train parity {cfg.name} ({cfg.family}) smoke width, float32: loss "
+            f"{float(m_card['loss']):.6f}, {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+            f"apart; every gradient leaf within {worst:.3e} ({where}) (all <= 1e-4); "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def run_families(dev) -> dict:
+    """Phase 9: deepseek-moe-16b served at full width, the other families
+    at full width and depth, card-CPU parity, prefill -> decode
+    equivalence and the train steps.  Returns the launches."""
+    launches = run_moe_serving(dev)
+    run_full_families(dev)
+    check_family_parity(dev)
+    check_prefill_decode_equivalence(dev)
+    check_family_train_parity(dev)
+    return launches
+
+
 def profile_training(dev) -> None:
     """Where a full-width train_step's time and memory go, for float32 and
     int8 moments (microbatches 1): the gradients (forward and backward,
@@ -2136,14 +2456,10 @@ def profile_run(label: str, run, slots: int, unit: str = "slot") -> None:
 
 def profile_serving(dev, calls: int = 50, decodes: int = 10) -> None:
     """Where the serving path's time goes: ``calls`` route calls of
-    SERVE_B requests (pod and full, at each of SERVE_FLEETS), and
-    ``decodes`` llama3-8b decode calls (32 layers, bfloat16: decode_step,
-    logits, argmax) at B=1 and B=4 against a 16-slot cache, each under
+    SERVE_B requests (pod and full, at each of SERVE_FLEETS), each under
     torch.profiler (wall, device busy, idle share, kernels a call, top
-    kernels), the decode beside its bound."""
-    from repro_torch.configs import get
+    kernels), and ``decodes`` llama3-8b decode calls (``profile_decode``)."""
     from repro_torch.core import Cluster, sample_locals
-    from repro_torch.models import decode_step, init_cache, init_params, logits_fn
     from repro_torch.sched import FleetTopology, PodRouter, service_rates
 
     for M, K in SERVE_FLEETS:
@@ -2154,7 +2470,18 @@ def profile_serving(dev, calls: int = 50, decodes: int = 10) -> None:
                                policy=policy, device=dev)
             profile_run(f"router {policy} M={M} K={K} B={SERVE_B}",
                         lambda: [router.route(h) for h in homes], calls, unit="call")
-    cfg = get("llama3_8b")
+    profile_decode(dev, "llama3_8b", decodes)
+
+
+def profile_decode(dev, name: str, decodes: int = 10) -> None:
+    """``decodes`` decode calls of ``name`` at full width (bfloat16:
+    decode_step, logits, argmax) at B=1 and B=4 against a 16-slot cache,
+    under torch.profiler, beside the call's bound (a MoE model's: all
+    experts read, and the active parameters')."""
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, init_cache, init_params, logits_fn
+
+    cfg = get(name)
     params = init_params(cfg, 0, device=dev)
     for B in (1, 4):
         cache = init_cache(cfg, B, 16, device=dev)
@@ -2165,8 +2492,10 @@ def profile_serving(dev, calls: int = 50, decodes: int = 10) -> None:
             for _ in range(decodes):
                 h, _ = decode_step(params, cfg, cache, tok, pos)
                 torch.argmax(logits_fn(params["embed"], h)[:, 0], dim=-1)
-        profile_run(f"decode {cfg.name} B={B} (bound {decode_bound(cfg, params, B)[0]:.3f} "
-                    f"ms)", run, decodes, unit="call")
+        bound = f"bound {decode_bound(cfg, params, B)[0]:.3f} ms"
+        if cfg.family == "moe":
+            bound += f", active-parameter bound {moe_active_bound(cfg, params, B)[0]:.3f} ms"
+        profile_run(f"decode {cfg.name} B={B} ({bound})", run, decodes, unit="call")
     del params
     torch.cuda.empty_cache()
 
@@ -2210,7 +2539,7 @@ def profile_telemetry(dev, slots: int = 400) -> None:
     grid of 32 (seeds), each also timed without the profiler, beside the
     same runs without telemetry; then the replay's slot: ReplayEngine
     (BP-Pod, M=500, telemetry off) over ``slots`` slots of a production
-    day at phase 6's arrival rate (REPLAY_TASKS in 10 000 slots)."""
+    day at phase 6's arrival rate (REPLAY_TASKS in REPLAY_T slots)."""
     from repro_torch.core import (Cluster, Rates, SimConfig, simulate_grid,
                                   simulate_grid_with_telemetry)
     from repro_torch.trace import ReplayEngine, production_day
@@ -2281,6 +2610,10 @@ def main() -> int:
     ap.add_argument("--training", action="store_true",
                     help="only phases 1 and 8 (with --profile: only the "
                          "training step's profile)")
+    ap.add_argument("--families", action="store_true",
+                    help="only phases 1 and 9 (the moe, vlm, encdec, hybrid "
+                         "and ssm families; with --profile: only the "
+                         "deepseek-moe-16b decode's profile)")
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -2311,6 +2644,13 @@ def main() -> int:
     floor = load_floor(libs[-1])
     log(f"[1] built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.families:
+        if args.profile:
+            profile_decode(dev, "deepseek_moe_16b")
+        else:
+            stage("[9] families: deepseek-moe-16b served, the others at full width, parity")
+            run_families(dev)
+        return 0
     if args.training:
         if args.profile:
             profile_training(dev)
@@ -2323,6 +2663,7 @@ def main() -> int:
         profile_slots(dev)
         profile_telemetry(dev)
         profile_serving(dev)
+        profile_decode(dev, "deepseek_moe_16b")
         sweep_route_commit(dev)
         time_snapshot_kernels(dev, False, floor)
         complexity_per_decision(dev, False)
@@ -2362,6 +2703,11 @@ def main() -> int:
         launches[name] += n
     stage("[8] training: llama3-8b at full width, card-CPU parity, Trainer resume")
     run_training(dev)
+    stage("[9] families: deepseek-moe-16b served at full width through PodRouter and "
+          "ServeEngine, internvl2 / whisper / zamba2 / rwkv6 at full width, kimi-k2 at "
+          "smoke width, card-CPU parity, prefill -> decode, train steps")
+    for name, n in run_families(dev).items():
+        launches[name] += n
     stage("every phase passed")
 
     kernels = []

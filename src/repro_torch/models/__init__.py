@@ -1,4 +1,4 @@
-"""Model zoo: the ``dense`` family in PyTorch (mirror of the dense subset
+"""Model zoo: every architecture family of ``configs`` in PyTorch (mirror
 of ``repro.models``): the train / prefill forward and the decode path.
 
 ``params_from_numpy`` turns the reference's parameter pytree, as numpy
@@ -32,16 +32,25 @@ def _from_numpy(a, dtype, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=dtype or own)
 
 
+# leaves the reference keeps in float32 whatever the model's dtype: the
+# MoE router, mamba2's A_log / D / dt_bias, rwkv6's w0 / u / ln_scale
+FLOAT32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias", "w0", "u", "ln_scale"})
+
+
 def params_from_numpy(tree, *, dtype=None, device=None) -> dict:
     """A nested dict of numpy arrays -> the same dict of tensors on
     ``device`` (the card unless named); float leaves become ``dtype`` (a
     torch dtype such as ``layers.dtype_of(cfg)``; by default float32, or
-    float64 for a float64 leaf).  Integer leaves keep their dtype."""
+    float64 for a float64 leaf), except the leaves named in
+    ``FLOAT32_LEAVES``, which stay float32 as in the reference.  Integer
+    leaves keep their dtype."""
     dev = resolve_device(device)
 
-    def walk(x):
-        return {k: walk(v) for k, v in x.items()} if isinstance(x, dict) \
-            else _from_numpy(x, dtype, dev)
+    def walk(x, name=None):
+        if isinstance(x, dict):
+            return {k: walk(v, k) for k, v in x.items()}
+        keep = dtype is not None and name in FLOAT32_LEAVES
+        return _from_numpy(x, torch.float32 if keep else dtype, dev)
 
     return walk(tree)
 
@@ -51,8 +60,9 @@ def train_state_from_numpy(state_tree, cfg, *, device=None):
     ``jax.tree.map(np.asarray, state)`` gives it: params, an ``OptState``
     whose moments are arrays or ``QTensor``s, and the step) -> the port's
     ``TrainState`` on ``device`` (the card unless named).  Params become
-    ``dtype_of(cfg)``; moments keep their dtype (float32, bfloat16, or a
-    QTensor's int8 codes and float32 scales), the step int32."""
+    ``dtype_of(cfg)`` (``FLOAT32_LEAVES`` stay float32); moments keep
+    their dtype (float32, bfloat16, or a QTensor's int8 codes and float32
+    scales), the step int32."""
     from ..optim.adamw import OptState, QTensor
     from ..train.train_step import TrainState
 
@@ -75,6 +85,6 @@ def train_state_from_numpy(state_tree, cfg, *, device=None):
                      m=moment(opt.m), v=moment(opt.v)))
 
 
-__all__ = ["Cache", "chunked_softmax_xent", "decode_step", "flash_attention",
+__all__ = ["FLOAT32_LEAVES", "Cache", "chunked_softmax_xent", "decode_step", "flash_attention",
            "forward", "init_cache", "init_params", "logits_fn",
            "params_from_numpy", "train_state_from_numpy"]

@@ -48,6 +48,18 @@ def _init(gen: torch.Generator, shape, scale, dtype,
     return out.copy_(x)
 
 
+def _fill(shape, value: float, dtype, device, out: Optional[torch.Tensor]):
+    """A constant leaf, or ``out`` filled with it."""
+    if out is None:
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return out.fill_(value)
+
+
+def _silu_as(x: torch.Tensor, dtype) -> torch.Tensor:
+    """SiLU in float32, cast to ``dtype``."""
+    return torch.nn.functional.silu(x.to(F32)).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, shape: tuple, dtype,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fan-in scaled truncated-normal init."""
@@ -59,7 +71,12 @@ def dense_init(gen: torch.Generator, d_in: int, shape: tuple, dtype,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_params(d: int, dtype, device=None) -> dict:
+def rmsnorm_params(d: int, dtype, device=None, out: Optional[dict] = None) -> dict:
+    """{"scale": ones [d]}; with ``out`` (one layer's slice of a stacked
+    scale) written into it."""
+    if out is not None:
+        out["scale"].fill_(1.0)
+        return out
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
@@ -392,8 +409,7 @@ def mlp_params(gen: torch.Generator, d: int, d_ff: int, dtype,
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w1"]
     u = x @ p["w3"]
-    h = torch.nn.functional.silu(g.to(F32)).to(x.dtype) * u
-    return h @ p["w2"]
+    return (_silu_as(g, x.dtype) * u) @ p["w2"]
 
 
 # ---------------------------------------------------------------------------

@@ -1223,3 +1223,135 @@ def test_trainer_resume_on_the_card_is_bitwise(dev, tmp_path):
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["resume"]["device"].startswith("cuda") and res["resume"]["resumed_losses_equal"]
     assert res["resume"]["leaves_byte_equal"] == res["resume"]["leaves"] == 37
+
+
+FAMILY_ARCHS = ["deepseek_moe_16b", "kimi_k2_1t_a32b", "internvl2_2b", "whisper_large_v3",
+                "zamba2_2_7b", "rwkv6_7b"]
+
+
+def _family_batch(cfg, B: int, S: int, seed: int) -> dict:
+    gen = torch.Generator().manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        b["img_embeds"] = torch.randn((B, cfg.n_img_tokens, cfg.d_model), generator=gen) * 0.5
+    if cfg.family == "encdec":
+        b["enc_embeds"] = torch.randn((B, S, cfg.d_model), generator=gen) * 0.5
+    return b
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_the_card_equal_the_cpu(dev, arch):
+    """Each family's float32 smoke config from the same parameters on the
+    card and on the CPU (TF32 off): forward (and the MoE aux losses) and
+    four decode steps from the same populated cache within 1e-4 of the
+    largest magnitude; every cache field too."""
+    from repro_torch import pytree
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch, smoke=True).replace(dtype="float32")
+    host = init_params(cfg, 3, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(dev), host)
+    b = _family_batch(cfg, 2, 32, seed=1)
+    with torch.no_grad():
+        hc, ac = forward(card, cfg, {k: v.to(dev) for k, v in b.items()})
+        hh, ah = forward(host, cfg, b)
+        assert float((hc.cpu() - hh).abs().max()) <= 1e-4 * float(hh.abs().max())
+        for k in ah:
+            assert abs(float(ac[k]) - float(ah[k])) <= 1e-4 * max(abs(float(ah[k])), 1e-30)
+        gen = torch.Generator().manual_seed(2)
+        ch = init_cache(cfg, 2, 24, device="cpu")
+        ch = ch._replace(**{n: torch.randn(t.shape, generator=gen).to(t.dtype)
+                            for n, t in zip(ch._fields, ch) if t.numel()})
+        cc = type(ch)(*(t.to(dev) for t in ch))
+        tok, pos = b["tokens"][:, -1:], torch.tensor([3, 17], dtype=torch.int32)
+        for _ in range(4):
+            hc, cc = decode_step(card, cfg, cc, tok.to(dev), pos.to(dev))
+            hh, ch = decode_step(host, cfg, ch, tok, pos)
+            assert float((hc.cpu() - hh).abs().max()) <= 1e-4 * float(hh.abs().max())
+            for a, h in zip(cc, ch):
+                if h.numel():
+                    assert float((a.cpu() - h).abs().max()) <= 1e-4 * float(h.abs().max())
+            tok, pos = (tok * 7 + 3) % cfg.vocab, pos + 1
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_2_7b", "deepseek_moe_16b"])
+def test_prefill_equals_decode_on_the_card(dev, arch):
+    """The reference's property (tests/test_models.py:64-86) on the card:
+    a float32 forward over 16 tokens equals 16 decode steps from an empty
+    cache within 1e-4 (MoE capacity factor 16: no drop)."""
+    from repro_torch.configs import get
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch, smoke=True).replace(remat=False, dtype="float32", capacity_factor=16.0)
+    params = init_params(cfg, 2, device=dev)
+    tokens = _family_batch(cfg, 2, 16, seed=3)["tokens"].to(dev)
+    with torch.no_grad():
+        h_fwd, _ = forward(params, cfg, {"tokens": tokens})
+        cache = init_cache(cfg, 2, 16, device=dev)
+        hs = []
+        for t in range(16):
+            h, cache = decode_step(params, cfg, cache, tokens[:, t:t + 1],
+                                   torch.full((2,), t, dtype=torch.int32, device=dev))
+            hs.append(h[:, 0])
+    assert float((torch.stack(hs, 1) - h_fwd).abs().max()) < 1e-4 * float(h_fwd.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "zamba2_2_7b", "rwkv6_7b"])
+def test_family_train_step_on_the_card_equals_the_cpu(dev, arch):
+    """One float32 train_step of the moe, hybrid and ssm smoke configs from
+    the same state on the card and on the CPU: loss, grad norm and the aux
+    losses within 1e-4 relative, every gradient leaf (the first moment)
+    within 1e-4 of its largest magnitude."""
+    from repro_torch import pytree
+    from repro_torch.configs import get
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch, smoke=True).replace(dtype="float32")
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=100)
+    host = init_train_state(cfg, ocfg, 0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(dev), host)
+    b = SyntheticLM(PipelineConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)).next_batch()
+    card, m_card = train_step(card, b, cfg=cfg, opt_cfg=ocfg)
+    host, m_cpu = train_step(host, b, cfg=cfg, opt_cfg=ocfg)
+    for k in ("loss", "grad_norm", "lb_loss", "z_loss"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= 1e-4 * abs(float(m_cpu[k])), k
+    for a, h in zip(pytree.leaves(card.opt.m), pytree.leaves(host.opt.m)):
+        assert float((a.cpu() - h).abs().max()) <= 1e-4 * float(h.abs().max())
+
+
+def test_moe_dispatch_on_the_card_equals_the_cpu(dev):
+    """Experts far over capacity (capacity factor 1.25, a skewed router):
+    the card's dispatch table equals the CPU's to the index (the pad row
+    in every overflowing expert's last slot), and the layer's output and
+    aux losses agree within 1e-5."""
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("deepseek_moe_16b", smoke=True).replace(dtype="float32")
+    p = moe.moe_params(torch.Generator().manual_seed(5), cfg)
+    p["router"][:, 0] += 0.2
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(6)) + 0.3
+    pc = {k: (v.to(dev) if torch.is_tensor(v) else {n: t.to(dev) for n, t in v.items()})
+          for k, v in p.items()}
+    oc, ac = moe.moe_apply(pc, cfg, x.to(dev), 2)
+    oh, ah = moe.moe_apply(p, cfg, x, 2)
+    assert float((oc.cpu() - oh).abs().max()) <= 1e-5 * float(oh.abs().max())
+    for k in ah:
+        assert abs(float(ac[k]) - float(ah[k])) <= 1e-5 * abs(float(ah[k]))
+    rng = np.random.default_rng(0)
+    E, C, Tl = 6, 4, 24
+    se = np.sort(rng.choice(E, size=(2, Tl * 2), p=[0.5, 0.2, 0.1, 0.1, 0.05, 0.05]), axis=-1)
+    st = rng.integers(0, Tl, se.shape)
+    args = [torch.from_numpy(a) for a in (se, st)]
+    want = moe._dispatch_table(*args, E, C, Tl)
+    got = moe._dispatch_table(*(a.to(dev) for a in args), E, C, Tl)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert (want[3] > C).any()

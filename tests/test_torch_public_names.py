@@ -26,10 +26,8 @@ from repro_torch.core import Cluster, Rates
 
 # modules of the reference the port does not have yet, and why
 NOT_PORTED = {
-    "core.refsim": "ROADMAP A.10",
     "kernels.ops": "by design: only the Pallas interpret defaults; its "
                    "public names are the port's kernels/__init__ exports",
-    "models.moe": "A.8.2", "models.rwkv": "A.8.2", "models.ssm": "A.8.2",
     "models.sharding": "A.8.3", "train.pipeline": "A.8.3",
     "launch.dryrun": "A.8.3", "launch.mesh": "A.8.3",
     "launch.serve": "A.8.3", "launch.specs": "A.8.3", "launch.train": "A.8.3",
@@ -38,10 +36,11 @@ NOT_PORTED = {
 
 # by design: no trace counters (nothing is traced); no Pallas layout
 # constants or interpret switch; sharding annotations and specs wait for
-# A.8.3, the moe family for A.8.2
+# A.8.3
 _SHARDING = {"constrain", "get_rules", "set_rules", "logical_pspec", "LP",
              "param_pspecs", "cache_pspecs", "attention_pspecs", "embed_pspecs",
-             "mlp_pspecs", "rmsnorm_pspecs"}
+             "mlp_pspecs", "rmsnorm_pspecs", "moe_pspecs", "mamba2_pspecs",
+             "rwkv6_pspecs", "ssm_state_pspecs", "rwkv_state_pspecs"}
 _PALLAS = {"resolve_interpret", "FLAG_BASE", "LANE", "WIDTH", "SUB"}
 MISSING_BY_DESIGN = {
     "core": {"trace_count", "reset_trace_count"},
@@ -54,7 +53,10 @@ MISSING_BY_DESIGN = {
     "kernels.weighted_argmin": _PALLAS,
     "models": _SHARDING,
     "models.layers": _SHARDING,
-    "models.transformer": _SHARDING | {"moe_apply", "moe_params", "moe_pspecs"},
+    "models.transformer": _SHARDING,
+    "models.moe": _SHARDING,
+    "models.ssm": _SHARDING,
+    "models.rwkv": _SHARDING,
     "optim": {"opt_pspecs"},
     "optim.adamw": {"opt_pspecs"},
     "train": {"pipeline_forward"},
@@ -64,8 +66,6 @@ MISSING_BY_DESIGN = {
 RENAMED = {"key": ("key", "gen", "rnd")}
 # signatures that differ by design
 SIGNATURE_BY_DESIGN = {
-    # dispatch_groups comes back with the moe family (A.8.2)
-    ("models", "decode_step"), ("models.transformer", "decode_step"),
     # the port's wrapper names the operands the reference passes as **kw,
     # and its plain version takes them as **kw
     ("kernels", "route_commit"), ("kernels.ref", "route_commit_ref"),
