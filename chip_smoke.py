@@ -23,6 +23,7 @@
     python3 chip_smoke.py --families # phases 1 and 9 only (with --profile:
                                      # only the deepseek-moe-16b decode's
                                      # profile)
+    python3 chip_smoke.py --sharding # phases 1 and 10 only
 
 Phases (any failure exits non-zero; the result lines print only at the end):
   1. device and build: the card's name, count and power limit; nvcc builds
@@ -130,6 +131,22 @@ Phases (any failure exits non-zero; the result lines print only at the end):
      equivalence of rwkv6, zamba2 and deepseek-moe (capacity factor 16)
      within 1e-4; one train_step of the moe, hybrid and ssm smoke configs
      on the card against the CPU within 1e-4.
+ 10. sharding, launch and roofline: ``python -m repro_torch.launch.serve
+     --arch llama3_8b`` (full width, the reference's defaults: 32 requests,
+     8 replicas, 2 pods, pod policy, 8 new tokens) in a child process, its
+     line parsed and its route_commit launches counted; ``launch.train``
+     on the smoke config for 20 steps, the loss finite and falling; an
+     nccl group of one rank and a (1, 1) mesh: phase 8's float32 parity
+     step with params, moments and batch as DTensors at their specs against
+     the plain step on the card, ring_allreduce_q8 and a one-stage
+     pipeline_forward at axis size 1; the dry run of phase 8's cell on a
+     one-device fake mesh, its argument bytes equal to the card's state and
+     batch and its FLOPs to FlopCounterMode's count of a real step, its
+     predicted peak beside the measured one; roofline.analytic beside
+     train_bound and decode_bound; and the reference's dry-run cell
+     (deepseek-moe-16b x train_4k) on the production (16, 16) mesh, traced
+     in a child process beside the phase: per-device peak against 80 GB,
+     wire bytes.
 It prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -2366,6 +2383,327 @@ def run_families(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: sharding, launch and roofline
+# ---------------------------------------------------------------------------
+
+SRC = Path(__file__).resolve().parent / "src"
+# runs ``python -m repro_torch.launch.serve`` (runpy, as -m does) with the
+# launch counters zeroed before and printed after
+SERVE_CHILD = r"""
+import json, runpy, sys
+from repro_torch.kernels import LAUNCHES, reset_launch_counts
+sys.argv = ["repro_torch.launch.serve"] + sys.argv[1:]
+reset_launch_counts()
+runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps(LAUNCHES))
+"""
+SERVE_LINE = (r"\[serve\] (\d+) requests done; mean completion ([0-9.]+) ticks \(p95 (\d+)\); "
+              r"locality \[([0-9., ]+)\]; probes/decision ([0-9.]+) \((\w+)\)")
+DRYRUN_CELL = ("deepseek_moe_16b", "train_4k", "pod")      # tests/test_distributed.py:66
+DRYRUN_CHILD = r"""
+import json, sys, tempfile
+from repro_torch.launch.dryrun import run_cell
+with tempfile.TemporaryDirectory() as d:
+    rec = run_cell(sys.argv[1], sys.argv[2], sys.argv[3], d)
+print("DRYRUN " + json.dumps(rec))
+"""
+H100_HBM_BYTES = 80e9
+
+
+def child(args: list, timeout: float) -> tuple:
+    """(stdout, seconds) of a child Python process with the port on its
+    path; a non-zero exit fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *args], capture_output=True, text=True,
+                       timeout=timeout, env=env)
+    if r.returncode != 0:
+        fail(f"{' '.join(args[:3])} exit {r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def run_launchers() -> dict:
+    """Phase 10 (a, b): ``python -m repro_torch.launch.serve --arch
+    llama3_8b`` at full width with the reference's defaults (32 requests,
+    8 replicas, 2 pods, pod policy, 8 new tokens), and ``launch.train``
+    on the smoke config for 20 steps, each in a child process on the
+    card.  Returns the serve child's route_commit launches."""
+    import re
+
+    out, secs = child(["-c", SERVE_CHILD, "--arch", "llama3_8b"], 600)
+    m = re.search(SERVE_LINE, out)
+    counts = [l for l in out.splitlines() if l.startswith("LAUNCHES ")]
+    if not m or not counts or int(m.group(1)) != 32 or m.group(6) != "pod":
+        fail(f"launch.serve: no line of 32 requests under pod: {out[-2000:]}")
+    launches = json.loads(counts[-1][len("LAUNCHES "):])
+    if launches["route_commit_pod"] < 1 or launches["route_commit_full"]:
+        fail(f"launch.serve: route_commit launches {launches}")
+    log(f"  python -m repro_torch.launch.serve --arch llama3_8b (full width, 32 layers, "
+        f"bfloat16; 32 requests, 8 replicas, 2 pods, pod, max_new 8): {m.group(0)}; "
+        f"route_commit_pod launched {launches['route_commit_pod']} times; {secs:.1f}s")
+    with tempfile.TemporaryDirectory() as d:
+        out, secs = child(["-m", "repro_torch.launch.train", "--arch", "llama3_8b", "--smoke",
+                           "--steps", "20", "--ckpt-dir", d], 600)
+    first = re.search(r"\[trainer\] step\s+0 loss ([0-9.naif]+)", out)
+    last = re.search(r"\[train\] done: final loss ([0-9.naif]+), mean step (\d+) ms", out)
+    if not first or not last:
+        fail(f"launch.train: no loss lines: {out[-2000:]}")
+    l0, l1 = float(first.group(1)), float(last.group(1))
+    if not (np.isfinite(l0) and np.isfinite(l1) and l1 < l0):
+        fail(f"launch.train: loss {l0} -> {l1}: not finite or not falling")
+    log(f"  python -m repro_torch.launch.train --arch llama3_8b --smoke --steps 20: loss "
+        f"{l0:.4f} -> {l1:.4f}, mean step {last.group(2)} ms; {secs:.1f}s")
+    return {"route_commit_pod": launches["route_commit_pod"]}
+
+
+def leaf_gaps(a_tree, b_tree) -> dict:
+    """{path: (max |a - b|, max |b|)} over two trees' leaves (a's DTensor
+    leaves as full tensors), on the host."""
+    from repro_torch import pytree
+    out = {}
+    paths, leaves, _ = pytree.flatten_with_paths(a_tree)
+    for p, a, b in zip(paths, leaves, pytree.leaves(b_tree)):
+        a = (a.full_tensor() if hasattr(a, "full_tensor") else a).detach().float().cpu()
+        b = b.detach().float().cpu()
+        out[p] = (float((a - b).abs().max()), float(b.abs().max()))
+    return out
+
+
+def check_sharded_step(dev) -> None:
+    """Phase 10 (c): an nccl group of one rank and a (1, 1) ("data",
+    "model") mesh on the card; phase 8's float32 parity step (llama3-8b
+    width, PARITY_LAYERS layers, B=1, S=PARITY_S) with params, moments and
+    batch as DTensors placed by param_pspecs / opt_pspecs through
+    sanitize_spec and param_specs given, against the plain step on the card
+    from the same state.  Gates: loss and grad norm within 1e-5, every
+    moment leaf within 1e-5 of its largest magnitude, every parameter
+    within 2 lr (Adam's first update moves by up to 2 lr where |g| ~ eps;
+    the entries more than 1e-5 apart are counted).  Then ring_allreduce_q8
+    and a one-stage pipeline_forward at axis size 1."""
+    import torch.distributed as dist
+
+    from repro_torch import pytree
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import param_pspecs
+    from repro_torch.models.sharding import logical_pspec, set_rules, use_mesh
+    from repro_torch.optim import AdamWConfig, opt_pspecs
+    from repro_torch.train import (TrainState, init_train_state, pipeline_forward,
+                                   ring_allreduce_q8, train_step)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        set_rules(mesh_axes=("data", "model"))
+        c = train_config().replace(n_layers=PARITY_LAYERS, dtype="float32")
+        ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in train_batches(1, c.vocab, PARITY_S, 1)[0].items()}
+        state = init_train_state(c, ocfg, 1, device=dev)
+        host0 = pytree.tree_map(lambda t: t.cpu(), state)
+        t0 = time.perf_counter()
+        plain, m_plain = train_step(state, b, cfg=c, opt_cfg=ocfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain_host = pytree.tree_map(lambda t: t.cpu(), plain)
+        metrics_plain = {k: float(v) for k, v in m_plain.items()}
+        del state, plain, m_plain
+        torch.cuda.empty_cache()
+        specs = TrainState(params=param_pspecs(c), opt=opt_pspecs(param_pspecs(c), ocfg))
+        sharded = S.shard_tree(pytree.tree_map(lambda t: t.to(dev), host0), specs, mesh)
+        sb = S.shard_tree(b, {k: logical_pspec("batch", None) for k in b}, mesh)
+        t2 = time.perf_counter()
+        new, m = train_step(sharded, sb, cfg=c, opt_cfg=ocfg, param_specs=param_pspecs(c))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        placed = {str(t.placements) for t in pytree.leaves(new.params)}
+        metrics = {k: float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+                   for k, v in m.items()}
+        errs = {k: abs(metrics[k] - metrics_plain[k]) / max(abs(metrics_plain[k]), 1e-30)
+                for k in ("loss", "grad_norm")}
+        gaps = leaf_gaps(new, plain_host)
+        del new, sharded
+        torch.cuda.empty_cache()
+        worst_moment = max((d / max(s, 1e-30), p) for p, (d, s) in gaps.items()
+                           if not p.startswith(".params"))
+        worst_param = max((d, p) for p, (d, s) in gaps.items() if p.startswith(".params"))
+        if max(errs.values()) > 1e-5 or worst_moment[0] > 1e-5 or worst_param[0] > 2 * ocfg.lr:
+            fail(f"sharded step: loss / grad norm {errs}, worst moment {worst_moment}, "
+                 f"worst parameter {worst_param}")
+        log(f"  sharded train_step on a (1, 1) nccl mesh ({c.name} width, {PARITY_LAYERS} "
+            f"layers, float32, B=1 S={PARITY_S}; placements {sorted(placed)}) against the "
+            f"plain step on the card from the same state: loss {metrics['loss']:.6f} "
+            f"({errs['loss']:.3e} apart), grad norm {metrics['grad_norm']:.6f} "
+            f"({errs['grad_norm']:.3e}); worst moment leaf {worst_moment[1]} "
+            f"{worst_moment[0]:.3e} of its largest magnitude; worst parameter "
+            f"{worst_param[1]} {worst_param[0]:.3e} apart (lr {ocfg.lr}); plain "
+            f"{t1 - t0:.2f}s, sharded {t3 - t2:.2f}s")
+
+        x = torch.randn(4096, device=dev)
+        with use_mesh(mesh):
+            if ring_allreduce_q8(x, "data") is not x:
+                fail("ring_allreduce_q8 at axis size 1 did not return its input")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        W = torch.randn(8, 256, 256, device=dev, generator=gen) * 0.05
+        bias = torch.randn(8, 256, device=dev, generator=gen) * 0.1
+        h0 = torch.randn(64, 256, device=dev, generator=gen)
+
+        def layer(p, h):
+            return torch.tanh(h @ p["w"] + p["b"])
+
+        out = pipeline_forward(layer, {"w": W, "b": bias}, h0, mesh=mesh, axis="data",
+                               n_micro=4)
+        ref = h0
+        for i in range(8):
+            ref = layer({"w": W[i], "b": bias[i]}, ref)
+        gap = float((out - ref).abs().max())
+        if gap > 1e-5:
+            fail(f"one-stage pipeline_forward {gap} from the layer loop")
+        log(f"  ring_allreduce_q8 over an axis of 1 returned its input; a one-stage "
+            f"pipeline_forward (8 layers of 256, B=64, 4 microbatches) within {gap:.3e} "
+            f"of the layer loop")
+    finally:
+        dist.destroy_process_group()
+
+
+def analytic_ms(cc) -> tuple:
+    """(ms, bound by) of an analytic CellCost at the H100's peaks."""
+    ops, moved = cc.flops_computed / BF16_OPS_PER_S * 1e3, cc.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops, moved), ("operations" if ops >= moved else "bytes")
+
+
+def check_dryrun(dev) -> None:
+    """Phase 10 (d): the dry run against the card.  Phase 8's training cell
+    (llama3-8b at TRAIN_LAYERS layers, B=TRAIN_B, S=TRAIN_S, float32
+    moments, one microbatch) traced on a one-device fake mesh: its argument
+    bytes must be the real state's and batch's on the card, exactly, and
+    its FLOPs FlopCounterMode's count of one real step on the card; its
+    predicted peak beside the measured one.  roofline.analytic's cell cost
+    beside the smoke's own train_bound and decode_bound."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import pytree
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.roofline import analytic
+    from repro_torch.train import init_train_state, train_step
+
+    cfg = train_config().replace(train_microbatches=1)
+    shape = ShapeSpec("phase8", TRAIN_S, TRAIN_B, "train")
+    t0 = time.perf_counter()
+    D.fake_world(1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        S.rules_for(cfg, shape, mesh)
+        with use_mesh(mesh):
+            rec = D.trace_cell(cfg, shape, mesh)
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    ocfg = S.opt_config_for(cfg)
+    state = init_train_state(cfg, ocfg, 0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in train_batches(1, cfg.vocab, TRAIN_S, TRAIN_B)[0].items()}
+    real = D.local_bytes(state) + D.local_bytes(batch)
+    mem = rec["memory"]
+    if mem["argument_size_in_bytes"] != real:
+        fail(f"dry run argument bytes {mem['argument_size_in_bytes']} != the card's {real}")
+    b_ms, b_by, b_flops, b_moved = train_bound(cfg, state, TRAIN_B, TRAIN_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        state, _ = train_step(state, batch, cfg=cfg, opt_cfg=ocfg, microbatches=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = fc.get_total_flops()
+    if rec["cost"]["flops"] != counted:
+        fail(f"dry run FLOPs {rec['cost']['flops']} != FlopCounterMode's {counted} on the card")
+    cc = analytic.cell_cost(cfg, shape)
+    a_ms, a_by = analytic_ms(cc)
+    log(f"  dry run of phase 8's cell ({cfg.name}, {cfg.n_layers} layers, B={TRAIN_B} "
+        f"S={TRAIN_S}, float32 moments, one microbatch) on a one-device fake mesh, traced "
+        f"at 1 and 2 layers in {t1 - t0:.1f}s: argument bytes {mem['argument_size_in_bytes']} "
+        f"= the card's state and batch {real}; FLOPs {rec['cost']['flops']:.6e} = "
+        f"FlopCounterMode on the card {counted:.6e}; predicted peak "
+        f"{mem['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB against the card's "
+        f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({before / 2 ** 30:.3f} GiB "
+        f"allocated before the step)")
+    log(f"  analytic.cell_cost of that cell: {cc.flops_computed:.6e} FLOPs computed "
+        f"({cc.flops_useful:.6e} useful), {cc.hbm_bytes / 1e9:.3f} GB of HBM traffic: "
+        f"{a_ms:.2f} ms by {a_by} at 989 TFLOP/s / 3.35 TB/s, against train_bound "
+        f"{b_ms:.2f} ms by {b_by} ({b_flops:.6e} FLOPs, {b_moved / 1e9:.3f} GB): the "
+        f"analytic model counts remat's extra forward and {cfg.train_microbatches + 3} "
+        f"reads of the params and activation traffic; train_bound does not")
+    del state, batch
+    torch.cuda.empty_cache()
+    full = get("llama3_8b")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import init_params
+    with FakeTensorMode():
+        fake = init_params(full, 0, device="cpu")
+    for B in (1, 8):
+        d_ms, d_moved = decode_bound(full, fake, B)
+        dc = analytic.cell_cost(full, ShapeSpec(f"decode{B}", 16, B, "decode"))
+        e_ms, e_by = analytic_ms(dc)
+        log(f"  decode {full.name} B={B}, a 16-slot cache: analytic {e_ms:.3f} ms by {e_by} "
+            f"({dc.hbm_bytes / 1e9:.3f} GB, {dc.flops_computed:.4e} FLOPs) against "
+            f"decode_bound {d_ms:.3f} ms ({d_moved / 1e9:.3f} GB): the analytic model adds "
+            f"activation traffic (8 bf16 vectors a layer) and reads every weight")
+
+
+def report_production_cell(out: str, secs: float) -> None:
+    """Phase 10 (d): the reference's dry-run cell on the production
+    (16, 16) mesh, as the child process traced it."""
+    lines = [l for l in out.splitlines() if l.startswith("DRYRUN ")]
+    if not lines:
+        fail(f"dry run {DRYRUN_CELL}: no record: {out[-2000:]}")
+    r = json.loads(lines[-1][len("DRYRUN "):])
+    m, col = r["memory"], r["collectives"]
+    if "skipped" in r or m["argument_size_in_bytes"] <= 0 or col["total_wire_bytes"] <= 0 \
+            or col["unknown_trip_conditions"] != 0:
+        fail(f"dry run {DRYRUN_CELL}: {r}")
+    log(f"  dry run {' x '.join(DRYRUN_CELL)} on the production (16, 16) mesh, rank 0 of "
+        f"{r['n_devices']} (a child process on the host, beside the phase; trace "
+        f"{r['timings']['trace_s']:.1f}s, {secs:.1f}s in all): arguments "
+        f"{m['argument_size_in_bytes'] / 1e9:.3f} GB, peak {m['peak_memory_in_bytes'] / 1e9:.3f} "
+        f"GB a device against one H100's 80 GB ({m['peak_memory_in_bytes'] / H100_HBM_BYTES:.3f}); "
+        f"{r['cost']['flops']:.4e} FLOPs a device; collective wire bytes "
+        f"{col['total_wire_bytes'] / 1e9:.3f} GB a device "
+        f"({ {k: int(v) for k, v in col['counts'].items() if v} }); gathers "
+        f"{r['notes']['gathers']}")
+
+
+def run_sharding(dev) -> dict:
+    """Phase 10: the launchers, the sharded step on a one-rank nccl mesh,
+    the ring and the pipeline at axis size 1, the dry run against the
+    card; the production-mesh dry-run cell traces in a child process
+    meanwhile (it needs the host only).  Returns the launches."""
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, *DRYRUN_CELL],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        launches = run_launchers()
+        check_sharded_step(dev)
+        check_dryrun(dev)
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"dry run {DRYRUN_CELL} exit {proc.returncode}: {err[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    report_production_cell(out, time.perf_counter() - t0)
+    return launches
+
+
 def profile_training(dev) -> None:
     """Where a full-width train_step's time and memory go, for float32 and
     int8 moments (microbatches 1): the gradients (forward and backward,
@@ -2610,6 +2948,8 @@ def main() -> int:
     ap.add_argument("--training", action="store_true",
                     help="only phases 1 and 8 (with --profile: only the "
                          "training step's profile)")
+    ap.add_argument("--sharding", action="store_true",
+                    help="only phases 1 and 10 (sharding, launch and roofline)")
     ap.add_argument("--families", action="store_true",
                     help="only phases 1 and 9 (the moe, vlm, encdec, hybrid "
                          "and ssm families; with --profile: only the "
@@ -2644,6 +2984,11 @@ def main() -> int:
     floor = load_floor(libs[-1])
     log(f"[1] built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.sharding:
+        stage("[10] sharding, launch and roofline")
+        run_sharding(dev)
+        stage("phases 1 and 10 passed")
+        return 0
     if args.families:
         if args.profile:
             profile_decode(dev, "deepseek_moe_16b")
@@ -2707,6 +3052,9 @@ def main() -> int:
           "ServeEngine, internvl2 / whisper / zamba2 / rwkv6 at full width, kimi-k2 at "
           "smoke width, card-CPU parity, prefill -> decode, train steps")
     for name, n in run_families(dev).items():
+        launches[name] += n
+    stage("[10] sharding, launch and roofline: the launchers, a sharded step, the dry run")
+    for name, n in run_sharding(dev).items():
         launches[name] += n
     stage("every phase passed")
 

@@ -24,7 +24,11 @@ Guarantees:
   - Integrity: per-leaf sha256 recorded and verified on restore.
   - Async: save() copies every leaf to the host before it returns and can
     write in a background thread; join_pending() fences.
-Restoring onto other shardings waits for sharding (ROADMAP A.8.3).
+  - Sharded trees: a DTensor leaf is saved as its full tensor (every rank
+    takes part in the gather); rank 0 alone writes, synchronously, and
+    every rank waits for it.  ``restore(..., shardings=)`` places each leaf
+    at its ``NamedSharding`` with ``distribute_tensor``, on any mesh: a
+    checkpoint saved on one mesh restores onto another (elastic reshard).
 """
 from __future__ import annotations
 
@@ -39,8 +43,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import pytree
+from ..models.sharding import NamedSharding, is_sharded
 
 try:  # optional: ~3x faster + denser than zlib, but not in every image
     import zstandard as zstd
@@ -146,7 +153,9 @@ def unpackb(blob: bytes) -> dict:
 
 def _host(x) -> np.ndarray:
     """A leaf as a C-contiguous numpy array on the host, copied now; a
-    bfloat16 tensor as its int16 words."""
+    bfloat16 tensor as its int16 words; a DTensor as its full tensor."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True).contiguous()
         return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
@@ -181,6 +190,7 @@ def save(directory: str, step: int, tree: Any, extra: Optional[dict] = None,
     """Write checkpoint; returns the final path."""
     _check_codec(codec)   # fail in the caller, not the async writer thread
     paths, leaves, _ = pytree.flatten_with_paths(tree)
+    sharded = is_sharded(leaves)
     host_leaves = [_host(x) for x in leaves]
     dtypes = [_dtype_name(x, a) for x, a in zip(leaves, host_leaves)]
 
@@ -215,7 +225,11 @@ def save(directory: str, step: int, tree: Any, extra: Optional[dict] = None,
         os.rename(tmp, final)
         _gc(directory, keep)
 
-    if async_:
+    if sharded:          # rank 0 writes what every rank gathered
+        if dist.get_rank() == 0:
+            _write()
+        dist.barrier()
+    elif async_:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
         _PENDING.append(t)
@@ -258,11 +272,9 @@ def restore(directory: str, step: int, target: Any,
     """Restore into the structure of ``target`` (a tree of tensors or
     Python scalars): each leaf a tensor, in its target's dtype and on its
     device when the target is a tensor.  Returns (tree, manifest).
-    ``shardings`` must be None: placement onto a mesh waits for sharding
-    (ROADMAP A.8.3)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings waits for "
-                                  "sharding (ROADMAP A.8.3)")
+    ``shardings``: a matching tree of ``NamedSharding``s for elastic
+    placement (each such leaf a DTensor on its mesh; a None leaf is
+    restored as without), or None."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -271,13 +283,18 @@ def restore(directory: str, step: int, target: Any,
         payload = unpackb(decompress(f.read(), codec))
 
     paths, leaves, unflatten = pytree.flatten_with_paths(target)
+    places = ([None] * len(leaves) if shardings is None else pytree.leaves(
+        shardings, is_leaf=lambda x: x is None or isinstance(x, NamedSharding)))
+    if len(places) != len(leaves):
+        raise ValueError(f"{len(places)} shardings for {len(leaves)} leaves")
     out = []
-    for p, like in zip(paths, leaves):
+    for p, like, shd in zip(paths, leaves, places):
         meta = manifest["leaves"][p]
         raw = payload[p]
         if verify and hashlib.sha256(raw).hexdigest() != meta["sha256"]:
             raise IOError(f"checkpoint leaf {p} failed integrity check")
-        out.append(_leaf(raw, meta, like))
+        t = _leaf(raw, meta, like)
+        out.append(t if shd is None else distribute_tensor(t, shd.mesh, shd.placements))
     return unflatten(out), manifest
 
 

@@ -13,7 +13,9 @@ import torch
 
 from ..core.simulator import resolve_device
 from .layers import chunked_softmax_xent, dtype_of, flash_attention, logits_fn
-from .transformer import Cache, decode_step, forward, init_cache, init_params
+from .sharding import constrain, get_rules, logical_pspec, set_rules
+from .transformer import (Cache, cache_pspecs, decode_step, forward, init_cache, init_params,
+                          param_pspecs)
 
 
 def _from_numpy(a, dtype, dev) -> torch.Tensor:
@@ -85,6 +87,7 @@ def train_state_from_numpy(state_tree, cfg, *, device=None):
                      m=moment(opt.m), v=moment(opt.v)))
 
 
-__all__ = ["FLOAT32_LEAVES", "Cache", "chunked_softmax_xent", "decode_step", "flash_attention",
-           "forward", "init_cache", "init_params", "logits_fn",
-           "params_from_numpy", "train_state_from_numpy"]
+__all__ = ["FLOAT32_LEAVES", "Cache", "cache_pspecs", "chunked_softmax_xent", "constrain",
+           "decode_step", "flash_attention", "forward", "get_rules", "init_cache",
+           "init_params", "logical_pspec", "logits_fn", "param_pspecs",
+           "params_from_numpy", "set_rules", "train_state_from_numpy"]

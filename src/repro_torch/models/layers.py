@@ -12,15 +12,23 @@ layout ([d, H, hd] and friends, flattened to 2-D views).
 ``flash_attention`` is a ``torch.autograd.Function`` whose forward is the
 reference's online-softmax block loop and whose backward is its
 FlashAttention-2 recompute, block for block (``_fa_forward`` /
-``_flash_bwd``).  The reference's ``constrain`` and ``*_pspecs`` are
-sharding annotations with nothing to do on one device; they wait for
-sharding (ROADMAP A.8.3).
+``_flash_bwd``).  Every ``*_params`` has its ``*_pspecs`` (the
+reference's logical specs, ``sharding.py``), and the reference's
+``constrain`` calls stand at the same points: on DTensors they
+redistribute, on plain tensors they do nothing.  With DTensor params the
+embedding lookup is ``F.embedding`` (vocab-parallel) and the
+cross-entropy's gold logit and logsumexp reduce over the vocab shards
+instead of gathering them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from .sharding import constrain, logical_pspec as LP
 
 F32 = torch.float32
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -41,11 +49,19 @@ def _init(gen: torch.Generator, shape, scale, dtype,
     ``out`` (e.g. one layer's slice of a stacked tensor) the values are
     written into it and it is returned."""
     x = torch.empty(shape, dtype=F32, device=gen.device)
+    if is_fake(x):           # under FakeTensorMode: shapes only, no draw
+        return x.to(dtype) if out is None else out
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     x.mul_(scale)
     if out is None:
         return x.to(dtype)
     return out.copy_(x)
+
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a FakeTensor (made under FakeTensorMode)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(x)
 
 
 def _fill(shape, value: float, dtype, device, out: Optional[torch.Tensor]):
@@ -78,6 +94,10 @@ def rmsnorm_params(d: int, dtype, device=None, out: Optional[dict] = None) -> di
         out["scale"].fill_(1.0)
         return out
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_pspecs() -> dict:
+    return {"scale": LP(None)}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -149,9 +169,9 @@ def _fa_forward(q, k, v, causal: bool, q_block: int, kv_block: int):
     outs, lses = [], []
     for qi in range(nq):
         qq = qb[qi].to(F32) * scale                          # [B, H, qb, hd]
-        m = torch.full((B, H, q_block), ninf, dtype=F32, device=q.device)
-        l = torch.zeros((B, H, q_block), dtype=F32, device=q.device)
-        acc = torch.zeros((B, H, q_block, hd), dtype=F32, device=q.device)
+        m = torch.full_like(qq[..., 0], ninf)           # [B, H, qb] float32
+        l = torch.zeros_like(qq[..., 0])
+        acc = torch.zeros_like(qq)
         for ki in range(nk):
             s = qq @ kb[ki].to(F32).transpose(-1, -2)
             if causal:
@@ -185,11 +205,11 @@ def _flash_bwd(causal: bool, q_block: int, kv_block: int, res, do):
     dob = _to_blocks(do, nq, q_block).to(F32)
     Dd = (dob * _to_blocks(o, nq, q_block).to(F32)).sum(dim=-1)   # [nq,B,H,qb]
     safe_lse = torch.where(torch.isfinite(lse), lse, 0.0)
-    dq = torch.zeros((nq, B, H, q_block, hd), dtype=F32, device=q.device)
+    dq = [torch.zeros_like(qb[i]) for i in range(nq)]
     dk, dv = [], []
     for j in range(nk):
         kk, vv = kb[j], vb[j]
-        dkj = torch.zeros((B, H, kv_block, hd), dtype=F32, device=q.device)
+        dkj = torch.zeros_like(kk)
         dvj = torch.zeros_like(dkj)
         for i in range(nq):
             qq, doi = qb[i], dob[i]
@@ -200,12 +220,12 @@ def _flash_bwd(causal: bool, q_block: int, kv_block: int, res, do):
             p = torch.exp(s - safe_lse[i][..., None])         # masked -> 0
             dp = doi @ vv.transpose(-1, -2)
             ds = p * (dp - Dd[i][..., None]) * scale
-            dq[i] += ds @ kk
+            dq[i] = dq[i] + ds @ kk
             dkj = dkj + ds.transpose(-1, -2) @ qq
             dvj = dvj + p.transpose(-1, -2) @ doi
         dk.append(dkj)
         dv.append(dvj)
-    return (_from_blocks(dq, Sq).to(q.dtype), _from_blocks(torch.stack(dk), Sk).to(k.dtype),
+    return (_from_blocks(torch.stack(dq), Sq).to(q.dtype), _from_blocks(torch.stack(dk), Sk).to(k.dtype),
             _from_blocks(torch.stack(dv), Sk).to(v.dtype))
 
 
@@ -236,7 +256,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % q_block or Sk % kv_block:
         raise ValueError(f"blocks ({q_block}, {kv_block}) do not divide "
                          f"the sequences ({Sq}, {Sk})")
+    if isinstance(q, DTensor):
+        return _flash_local(q, k, v, causal, q_block, kv_block)
     return _Flash.apply(q, k, v, causal, q_block, kv_block)
+
+
+def _flash_local(q, k, v, causal: bool, q_block: int, kv_block: int):
+    """DTensor q, k, v: the block loop on each rank's local shards (the
+    body of a ``local_map``), at the placements the reference constrains q
+    and k to (batch, seq, heads); attention is independent across batch
+    rows and heads, so no collective is needed.  The sequence is never
+    sharded by the rules; a spec that shards it raises."""
+    q, k, v = (constrain(t, "batch", "seq", "heads", None) for t in (q, k, v))
+    pl = q.placements
+    if any(getattr(x, "dim", None) == 1 for x in pl):
+        raise ValueError(f"attention over a sharded sequence: {pl}")
+    if k.placements != pl or v.placements != pl:
+        raise ValueError(f"q {pl}, k {k.placements}, v {v.placements} differ")
+    out = _Flash.apply(q.to_local(grad_placements=pl), k.to_local(grad_placements=pl),
+                       v.to_local(grad_placements=pl), causal, q_block, kv_block)
+    return DTensor.from_local(out, q.device_mesh, pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +321,15 @@ def attention_params(gen: torch.Generator, cfg, d_model: Optional[int] = None,
     return p
 
 
+def attention_pspecs() -> dict:
+    return {
+        "wq": LP("embed_fsdp", "heads", "head_dim"),
+        "wk": LP("embed_fsdp", "kv_heads", "head_dim"),
+        "wv": LP("embed_fsdp", "kv_heads", "head_dim"),
+        "wo": LP("heads", "head_dim", "embed_fsdp"),
+    }
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] times w [d, H, k] -> [B, S, H, k]."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(
@@ -304,6 +352,7 @@ def attention_fwd(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     cross-attention (keys/values come from the encoder stream);
     ``tables`` are ``rope_tables(positions, ...)`` when the caller has
     them."""
+    x = constrain(x, "batch", "seq", None)       # whole on every model rank
     q = _proj(x, p["wq"])
     src = x if kv_override is None else kv_override[0]
     k = _proj(src, p["wk"])
@@ -314,8 +363,10 @@ def attention_fwd(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             k = rope(k, positions, cfg.rope_theta, tables)
         else:
             k = rope(k, kv_override[1], cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", None)
     k = _repeat_kv(k, cfg.padded_q_groups)
     v = _repeat_kv(v, cfg.padded_q_groups)
+    k = constrain(k, "batch", "seq", "heads", None)
     o = flash_attention(q, k, v, causal=causal, q_block=cfg.q_block,
                         kv_block=cfg.kv_block)
     mask = head_mask(cfg, o.device)
@@ -353,6 +404,17 @@ def attend(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     """``attention_decode`` with the step's shared tensors given, adding
     the new key and value into ``cache_k`` / ``cache_v`` in place (at each
     row's position: the reference's one-hot add).  Returns out [B, 1, D]."""
+    return attend_cache(p, cfg, x, cache_k, cache_v, step, use_rope=use_rope,
+                        append=append, inplace=True)[0]
+
+
+def attend_cache(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, step: DecodeStep, *, use_rope: bool = True,
+                 append: bool = True, inplace: bool = False):
+    """Returns (out [B, 1, D], cache_k', cache_v').  With ``append`` the new
+    key and value go in at each row's position: in place when ``inplace``
+    (a gather, an add and a scatter), else by the reference's one-hot add
+    into new tensors, constrained to the cache's spec (the DTensor path)."""
     B, S, Kv, hd = cache_k.shape
     G = cfg.padded_q_groups
     q = _proj(x, p["wq"])                               # [B, 1, Hp, hd]
@@ -361,18 +423,67 @@ def attend(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     if use_rope:
         q = rope(q, None, cfg.rope_theta, step.tables)
         k_new = rope(k_new, None, cfg.rope_theta, step.tables)
-    if append:          # one position a row: a gather, an add and a scatter
+    if append and inplace:
         cache_k[step.rows, step.pos] += k_new[:, 0].to(cache_k.dtype)
         cache_v[step.rows, step.pos] += v_new[:, 0].to(cache_v.dtype)
+    elif append:
+        hot = (torch.arange(S, device=step.pos.device)[None, :]
+               == step.pos[:, None]).to(cache_k.dtype)
+        cache_k = constrain(cache_k + hot[:, :, None, None] * k_new.to(cache_k.dtype),
+                            "batch", "cache_seq", "kv_heads", None)
+        cache_v = constrain(cache_v + hot[:, :, None, None] * v_new.to(cache_v.dtype),
+                            "batch", "cache_seq", "kv_heads", None)
+    if isinstance(cache_k, DTensor):      # q's heads at the cache's kv-head spec
+        q = constrain(q, "batch", None, "kv_heads", None)
     qg = q.reshape(B, Kv, G, hd).to(F32)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.to(F32)) * (hd ** -0.5)
-    pw = torch.softmax(s.masked_fill(step.drop, float("-inf")), dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", pw, cache_v.to(F32))
+    if isinstance(cache_k, DTensor):
+        o = _decode_attention_local(qg, cache_k, cache_v, step.drop)
+    else:
+        s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.to(F32)) * (hd ** -0.5)
+        pw = torch.softmax(s.masked_fill(step.drop, float("-inf")), dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", pw, cache_v.to(F32))
     o = o.reshape(B, 1, Kv * G, hd).to(x.dtype)
     if step.heads is not None:
         o = o * step.heads[None, None, :, None].to(o.dtype)
     wo = p["wo"]
-    return o.reshape(B, 1, -1) @ wo.reshape(-1, wo.shape[-1])
+    return o.reshape(B, 1, -1) @ wo.reshape(-1, wo.shape[-1]), cache_k, cache_v
+
+
+def _decode_attention_local(qg, cache_k, cache_v, drop):
+    """DTensor decode attention [B, Kv, G, hd] on local shards: each rank
+    attends its rows, kv heads and cache positions, and the positions'
+    shards are combined flash-decoding style (an all-reduce of the max,
+    then of the rescaled sums and outputs) where the cache's sequence is
+    sharded (the rules' cache_seq)."""
+    mesh = cache_k.device_mesh
+    cpl = cache_k.placements
+    if cache_v.placements != cpl:
+        raise ValueError(f"cache k {cpl} and v {cache_v.placements} differ")
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in cpl]
+
+    def like(b, k, s_):        # placement a mesh dim, by what it shards in the cache
+        return tuple(b if p == Shard(0) else k if p == Shard(2) else s_ if q else Replicate()
+                     for p, q in zip(cpl, seq))
+
+    hd = qg.shape[-1]
+    ql = qg.redistribute(mesh, like(Shard(0), Shard(1), Replicate())).to_local()
+    dl = drop.redistribute(mesh, like(Shard(0), Replicate(), Shard(3))).to_local()
+    s = torch.einsum("bkgd,bskd->bkgs", ql, cache_k.to_local().to(F32)) * (hd ** -0.5)
+    s = s.masked_fill(dl, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.full_like(m, -1e30))
+
+    def combine(t, op):        # reduce over the cache's sequence shards
+        red = DTensor.from_local(t, mesh, like(Shard(0), Shard(1), Partial(op)),
+                                 run_check=False)
+        return red.redistribute(mesh, like(Shard(0), Shard(1), Replicate())).to_local()
+
+    gm = combine(m, "max")
+    p = torch.exp(s - gm)
+    l_ = combine(p.sum(dim=-1, keepdim=True), "sum")
+    o = combine(torch.einsum("bkgs,bskd->bkgd", p, cache_v.to_local().to(F32)), "sum")
+    return DTensor.from_local(o / l_, mesh, like(Shard(0), Shard(1), Replicate()),
+                              run_check=False)
 
 
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
@@ -384,11 +495,14 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     With ``append`` the new key and value are added at ``pos`` into new
     cache tensors (the inputs are left as they are).  Returns (out
     [B, 1, D], cache_k', cache_v')."""
+    step = decode_step_consts(cfg, pos, cache_k.shape[1])
+    if isinstance(cache_k, DTensor):
+        return attend_cache(p, cfg, x, cache_k, cache_v, step, use_rope=use_rope,
+                            append=append)
     if append:
         cache_k, cache_v = cache_k.clone(), cache_v.clone()
-    step = decode_step_consts(cfg, pos, cache_k.shape[1])
-    out = attend(p, cfg, x, cache_k, cache_v, step, use_rope=use_rope, append=append)
-    return out, cache_k, cache_v
+    return attend_cache(p, cfg, x, cache_k, cache_v, step, use_rope=use_rope,
+                        append=append, inplace=True)
 
 
 # ---------------------------------------------------------------------------
@@ -406,10 +520,17 @@ def mlp_params(gen: torch.Generator, d: int, d_ff: int, dtype,
     }
 
 
+def mlp_pspecs() -> dict:
+    return {"w1": LP("embed_fsdp", "ff"), "w3": LP("embed_fsdp", "ff"),
+            "w2": LP("ff", "embed_fsdp")}
+
+
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, "batch", "seq", None)       # whole on every model rank
     g = x @ p["w1"]
     u = x @ p["w3"]
-    return (_silu_as(g, x.dtype) * u) @ p["w2"]
+    h = constrain(_silu_as(g, x.dtype) * u, "batch", "seq", "ff")
+    return h @ p["w2"]
 
 
 # ---------------------------------------------------------------------------
@@ -427,14 +548,34 @@ def embed_params(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+def embed_pspecs(cfg) -> dict:
+    p = {"tok": LP("vocab", "embed_fsdp")}
+    if not cfg.tie_embeddings:
+        p["head"] = LP("embed_fsdp", "vocab")
+    return p
+
+
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.to(torch.int64)]
+    tok = p["tok"]
+    if isinstance(tok, DTensor):     # vocab-parallel: masked lookup + reduce
+        return constrain(F.embedding(tokens.to(torch.int64), tok), "batch", "seq", None)
+    return tok[tokens.to(torch.int64)]
 
 
 def logits_fn(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x [B, S, D] -> [B, S, V] in the weights' dtype."""
     w = p["tok"].T if "head" not in p else p["head"]
-    return x @ w
+    return constrain(x @ w, "batch", "seq", "vocab")
+
+
+def _sharded_lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, gold logit) of vocab-sharded logits, each a reduction
+    over the vocab shards (max, sum) rather than a gather of the logits."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)))[..., 0]
+    ids = torch.arange(logits.shape[-1], device=labels.device)
+    gold = torch.where(ids == labels[..., None], logits, 0.0).sum(dim=-1)
+    return lse, gold
 
 
 def chunked_softmax_xent(embed_p: dict, x: torch.Tensor, labels: torch.Tensor,
@@ -448,12 +589,16 @@ def chunked_softmax_xent(embed_p: dict, x: torch.Tensor, labels: torch.Tensor,
     if S % chunk:
         raise ValueError(f"chunk {chunk} does not divide S={S}")
     labels = labels.to(torch.int64)
+    x = constrain(x, "batch", "seq", None)
     total = torch.zeros((), dtype=F32, device=x.device)
     for c in range(0, S, chunk):
         ll = labels[:, c:c + chunk]
         logits = logits_fn(embed_p, x[:, c:c + chunk]).to(F32)
-        lse = torch.logsumexp(logits, dim=-1)
-        # a padded label gathers an in-range logit that the mask drops
-        gold = logits.gather(-1, ll.clamp(max=logits.shape[-1] - 1)[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            lse, gold = _sharded_lse_gold(logits, ll)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            # a padded label gathers an in-range logit that the mask drops
+            gold = logits.gather(-1, ll.clamp(max=logits.shape[-1] - 1)[..., None])[..., 0]
         total = total + torch.where(ll < vocab, lse - gold, 0.0).sum()
     return total / (B * S)

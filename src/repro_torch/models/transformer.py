@@ -17,7 +17,16 @@ leading axes (the reference scans them), with the positions and RoPE
 tables made once for all layers.  With ``cfg.remat`` each layer (each
 hybrid group) of ``forward`` runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint``): the backward recomputes it from its
-input.  The sharding specs wait for ROADMAP A.8.3.
+input.
+
+``param_pspecs(cfg)`` / ``cache_pspecs(cfg)`` give the reference's
+PartitionSpec trees (``sharding.P``, the stacked dims unsharded).  Given
+DTensor params (and batch or cache), ``forward`` and ``decode_step`` run
+as DTensor programs (``sharding.sharded_region``); a DTensor cache takes
+the reference's one-hot append a layer instead of the in-place one, and
+the residual stream is constrained to ("batch", "seq", None) after every
+layer (the all-reduce of the layer's partial sums; left to itself DTensor
+may scatter them over the batch dim instead).
 """
 from __future__ import annotations
 
@@ -33,14 +42,19 @@ import torch
 import torch._dynamo  # noqa: F401
 import torch.utils.checkpoint
 
+from torch.distributed.tensor import DTensor
+
 from .. import pytree
 from ..core.simulator import resolve_device
 from . import rwkv as rk
 from . import ssm
-from .layers import (F32, attend, attention_fwd, attention_params,
-                     decode_step_consts, dtype_of, embed_lookup, embed_params,
-                     mlp, mlp_params, rmsnorm, rmsnorm_params, rope_tables)
-from .moe import moe_apply, moe_params
+from .layers import (F32, attend, attend_cache, attention_fwd, attention_params,
+                     attention_pspecs, decode_step_consts, dtype_of, embed_lookup,
+                     embed_params, embed_pspecs, mlp, mlp_params, mlp_pspecs, rmsnorm,
+                     rmsnorm_params, rmsnorm_pspecs, rope_tables)
+from .moe import moe_apply, moe_params, moe_pspecs
+from .sharding import (P, constrain, get_rules, is_sharded, logical_pspec as LP,
+                       rules_override, sharded_region, to_spec)
 
 
 def _generator(key: Union[int, torch.Generator], device) -> torch.Generator:
@@ -72,12 +86,54 @@ def _stack(dims: tuple, draw):
     return stacked
 
 
+class _Layers:
+    """The params' stacked layers one at a time (``_unstack``).  With
+    DTensor params whose rules shard "embed_fsdp" (ZeRO-3), each layer's
+    weights are gathered over those axes as the loop reaches it, and the
+    unstacked params (embedding, norms, the shared block) once, as the
+    reference re-gathers them inside its layer scan; the gradients go back
+    to the sharded placements (a reduce-scatter)."""
+
+    def __init__(self, params: dict, cfg):
+        self.specs = None
+        if is_sharded(pytree.leaves(params)) and get_rules().get("embed_fsdp"):
+            with rules_override(embed_fsdp=None):
+                self.specs = param_pspecs(cfg)
+
+    def top(self, params: dict) -> dict:
+        """``params`` with every unstacked entry gathered."""
+        if self.specs is None:
+            return params
+        stacked = ("layers", "enc_layers", "dec_layers", "groups")
+        return {k: v if k in stacked else _to_specs(v, self.specs[k]) for k, v in params.items()}
+
+    def __call__(self, params: dict, name: str, n: int):
+        for lp in _unstack(params[name], n):
+            if self.specs is not None:
+                lp = _to_specs(lp, pytree.tree_map(lambda s: P(*s[1:]), self.specs[name],
+                                                  is_leaf=_is_p))
+            yield lp
+
+
+def _is_p(x) -> bool:
+    return isinstance(x, P)
+
+
+def _to_specs(tree, specs):
+    return pytree.tree_map(to_spec, tree, specs, is_leaf=_is_p)
+
+
 def _unstack(tree, n: int) -> list:
     """``n`` trees of views, the i-th holding every leaf's ``[i]`` slice
     (one unbind a leaf)."""
     leaves, unflatten = pytree.flatten(tree)
     per = [t.unbind(0) for t in leaves]
     return [unflatten([p[i] for p in per]) for i in range(n)]
+
+
+def _stack_pspecs(tree):
+    """Prepend the (unsharded) layer-stack dim to every PartitionSpec."""
+    return pytree.tree_map(lambda p: P(None, *p), tree, is_leaf=lambda x: isinstance(x, P))
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +212,48 @@ def init_params(cfg, key: Union[int, torch.Generator], *, device=None) -> dict:
     return params
 
 
+def _decoder_layer_pspecs(cfg, moe: bool):
+    p = {"ln1": rmsnorm_pspecs(), "attn": attention_pspecs(),
+         "ln2": rmsnorm_pspecs()}
+    if moe:
+        p["moe"] = moe_pspecs(cfg)
+    else:
+        p["mlp"] = mlp_pspecs()
+    return p
+
+
+def _encdec_layer_pspecs(cfg, cross: bool):
+    p = {"ln1": rmsnorm_pspecs(), "attn": attention_pspecs(),
+         "ln3": rmsnorm_pspecs(), "mlp": mlp_pspecs()}
+    if cross:
+        p["ln2"] = rmsnorm_pspecs()
+        p["xattn"] = attention_pspecs()
+    return p
+
+
+def param_pspecs(cfg) -> dict:
+    """The params' PartitionSpec tree (the same structure as
+    ``init_params``'s), by the active rules."""
+    specs = {"embed": embed_pspecs(cfg), "final_ln": rmsnorm_pspecs()}
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        specs["layers"] = _stack_pspecs(_decoder_layer_pspecs(cfg, fam == "moe"))
+    elif fam == "encdec":
+        specs["enc_layers"] = _stack_pspecs(_encdec_layer_pspecs(cfg, False))
+        specs["dec_layers"] = _stack_pspecs(_encdec_layer_pspecs(cfg, True))
+        specs["enc_ln"] = rmsnorm_pspecs()
+    elif fam == "hybrid":
+        inner = {"ln": rmsnorm_pspecs(), "mamba": ssm.mamba2_pspecs(cfg)}
+        specs["groups"] = _stack_pspecs(_stack_pspecs(inner))
+        specs["shared"] = {"ln1": rmsnorm_pspecs(), "attn": attention_pspecs(),
+                           "ln2": rmsnorm_pspecs(), "mlp": mlp_pspecs()}
+    elif fam == "ssm":
+        specs["layers"] = _stack_pspecs(
+            {"ln1": rmsnorm_pspecs(), "ln2": rmsnorm_pspecs(),
+             "mix": rk.rwkv6_pspecs()})
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
@@ -179,7 +277,14 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
     """Returns (hidden [B, S, D], aux), on the params' device.  aux holds
     the MoE losses averaged over layers (zero for the other families);
     ``collect_state`` is read by no family, as in the reference."""
+    with sharded_region(is_sharded(pytree.leaves(params))):
+        return _forward(params, cfg, batch, dispatch_groups)
+
+
+def _forward(params: dict, cfg, batch: dict, dispatch_groups: int):
     fam = cfg.family
+    layers = _Layers(params, cfg)
+    params = layers.top(params)
     x = embed_lookup(params["embed"], batch["tokens"])
     B = x.shape[0]
     zero = torch.zeros((), dtype=F32, device=x.device)
@@ -187,6 +292,7 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
     if fam == "vlm":
         x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
     positions, tables = _positions(B, x.shape[1], cfg, x.device)
+    x = constrain(x, "batch", "seq", None)
 
     def attn_block(p, ln, h, causal=True):
         return attention_fwd(p, cfg, rmsnorm(ln, h, cfg.norm_eps), positions,
@@ -202,8 +308,9 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
             return h + mlp(lp["mlp"], hn), zero, zero
 
         layer = _maybe_remat(body, cfg)
-        for lp in _unstack(params["layers"], cfg.n_layers):
+        for lp in layers(params, "layers", cfg.n_layers):
             x, l, z = layer(x, lp)
+            x = constrain(x, "batch", "seq", None)
             lb, zl = lb + l, zl + z
         lb, zl = lb / cfg.n_layers, zl / cfg.n_layers
 
@@ -224,12 +331,12 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
             return h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps))
 
         layer = _maybe_remat(enc_body, cfg)
-        for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
-            enc = layer(enc, lp)
+        for lp in layers(params, "enc_layers", cfg.n_enc_layers):
+            enc = constrain(layer(enc, lp), "batch", "seq", None)
         enc = rmsnorm(params["enc_ln"], enc, cfg.norm_eps)
         layer = _maybe_remat(dec_body, cfg)
-        for lp in _unstack(params["dec_layers"], cfg.n_layers):
-            x = layer(x, lp, enc)
+        for lp in layers(params, "dec_layers", cfg.n_layers):
+            x = constrain(layer(x, lp, enc), "batch", "seq", None)
 
     elif fam == "hybrid":
         def group_body(h, gp, sp):
@@ -239,8 +346,8 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
             return h + mlp(sp["mlp"], rmsnorm(sp["ln2"], h, cfg.norm_eps))
 
         layer = _maybe_remat(group_body, cfg)
-        for gp in _unstack(params["groups"], cfg.n_layers // cfg.attn_every):
-            x = layer(x, gp, params["shared"])
+        for gp in layers(params, "groups", cfg.n_layers // cfg.attn_every):
+            x = constrain(layer(x, gp, params["shared"]), "batch", "seq", None)
 
     elif fam == "ssm":
         def body(h, lp):
@@ -248,8 +355,8 @@ def forward(params: dict, cfg, batch: dict, *, dispatch_groups: int = 1,
             return h + rk.rwkv6_channel_mix(lp["mix"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
 
         layer = _maybe_remat(body, cfg)
-        for lp in _unstack(params["layers"], cfg.n_layers):
-            x = layer(x, lp)
+        for lp in layers(params, "layers", cfg.n_layers):
+            x = constrain(layer(x, lp), "batch", "seq", None)
     else:
         raise ValueError(fam)
 
@@ -307,6 +414,52 @@ def init_cache(cfg, B: int, S: int, *, device=None) -> Cache:
     raise ValueError(fam)
 
 
+def cache_pspecs(cfg) -> Cache:
+    e = P(None)
+    kvp = P(None, *LP("batch", "cache_seq", "kv_heads", None))
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        return Cache(kvp, kvp, e, e, e, e, e, e, e)
+    if fam == "encdec":
+        return Cache(kvp, kvp, kvp, kvp, e, e, e, e, e)
+    if fam == "hybrid":
+        sp = ssm.ssm_state_pspecs()
+        conv = P(None, None, *sp.conv)
+        ssm_p = P(None, None, *sp.ssm)
+        return Cache(kvp, kvp, e, e, conv, ssm_p, e, e, e)
+    if fam == "ssm":
+        rp = rk.rwkv_state_pspecs()
+        return Cache(e, e, e, e, e, e,
+                     P(None, *rp.wkv), P(None, *rp.shift_att),
+                     P(None, *rp.shift_ffn))
+    raise ValueError(fam)
+
+
+class _KV:
+    """One attention stack's decode cache K and V [L, B, S, Kv, hd]: plain
+    tensors are cloned once and appended in place a layer; DTensor caches
+    take the reference's one-hot add a layer (``attend_cache``) and are
+    stacked at the end."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+        self.sharded = isinstance(k, DTensor)
+        if self.sharded:
+            self.k, self.v = list(k.unbind(0)), list(v.unbind(0))
+        else:
+            self.k, self.v = k.clone(), v.clone()
+
+    def attend(self, p: dict, cfg, x: torch.Tensor, l: int, step) -> torch.Tensor:
+        if not self.sharded:
+            return attend(p, cfg, x, self.k[l], self.v[l], step)
+        out, self.k[l], self.v[l] = attend_cache(p, cfg, x, self.k[l], self.v[l], step)
+        return out
+
+    def stacked(self) -> tuple:
+        if self.sharded:
+            return torch.stack(self.k), torch.stack(self.v)
+        return self.k, self.v
+
+
 def decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
                 pos: torch.Tensor, dispatch_groups: int = 1):
     """One new token against a populated cache, on the params' device.
@@ -314,40 +467,50 @@ def decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
     tokens: [B, 1] int; pos: [B] int (index of the new token).
     Returns (hidden [B, 1, D], cache'); the input cache is left as it
     is."""
+    with sharded_region(is_sharded(pytree.leaves(params))):
+        return _decode_step(params, cfg, cache, tokens, pos, dispatch_groups)
+
+
+def _decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
+                 pos: torch.Tensor, dispatch_groups: int):
     fam = cfg.family
+    layers = _Layers(params, cfg)
+    params = layers.top(params)
     x = embed_lookup(params["embed"], tokens)
     eps = cfg.norm_eps
 
     if fam in ("dense", "vlm", "moe"):
-        k, v = cache.k.clone(), cache.v.clone()     # the new cache, filled in place
-        step = decode_step_consts(cfg, pos, k.shape[2])
-        for l, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x = x + attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x, eps), k[l], v[l], step)
+        kv = _KV(cache.k, cache.v)                  # the new cache
+        step = decode_step_consts(cfg, pos, cache.k.shape[2])
+        for l, lp in enumerate(layers(params, "layers", cfg.n_layers)):
+            x = x + kv.attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x, eps), l, step)
             hn = rmsnorm(lp["ln2"], x, eps)
             x = x + (moe_apply(lp["moe"], cfg, hn, dispatch_groups)[0] if fam == "moe"
                      else mlp(lp["mlp"], hn))
+        k, v = kv.stacked()
         cache = cache._replace(k=k, v=v)
 
     elif fam == "encdec":
-        k, v = cache.k.clone(), cache.v.clone()
-        step = decode_step_consts(cfg, pos, k.shape[2])
+        kv = _KV(cache.k, cache.v)
+        step = decode_step_consts(cfg, pos, cache.k.shape[2])
         # cross-attention: read-only over the encoder cache, every position
         Se = cache.xk.shape[2]
         xstep = decode_step_consts(cfg, torch.full_like(pos, Se - 1), Se)
-        for l, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
-            x = x + attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x, eps), k[l], v[l], step)
+        for l, lp in enumerate(layers(params, "dec_layers", cfg.n_layers)):
+            x = x + kv.attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x, eps), l, step)
             x = x + attend(lp["xattn"], cfg, rmsnorm(lp["ln2"], x, eps), cache.xk[l],
                            cache.xv[l], xstep, use_rope=False, append=False)
             x = x + mlp(lp["mlp"], rmsnorm(lp["ln3"], x, eps))
+        k, v = kv.stacked()
         cache = cache._replace(k=k, v=v)
 
     elif fam == "hybrid":
         sp = params["shared"]
         ng = cfg.n_layers // cfg.attn_every
-        k, v = cache.k.clone(), cache.v.clone()
-        step = decode_step_consts(cfg, pos, k.shape[2])
+        kv = _KV(cache.k, cache.v)
+        step = decode_step_consts(cfg, pos, cache.k.shape[2])
         convs, states = [], []
-        for g, gp in enumerate(_unstack(params["groups"], ng)):
+        for g, gp in enumerate(layers(params, "groups", ng)):
             for j, lp in enumerate(_unstack(gp, cfg.attn_every)):
                 out, ns = ssm.mamba2_decode(
                     lp["mamba"], cfg, rmsnorm(lp["ln"], x, eps),
@@ -355,8 +518,9 @@ def decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
                 x = x + out
                 convs.append(ns.conv)
                 states.append(ns.ssm)
-            x = x + attend(sp["attn"], cfg, rmsnorm(sp["ln1"], x, eps), k[g], v[g], step)
+            x = x + kv.attend(sp["attn"], cfg, rmsnorm(sp["ln1"], x, eps), g, step)
             x = x + mlp(sp["mlp"], rmsnorm(sp["ln2"], x, eps))
+        k, v = kv.stacked()
         lead = (ng, cfg.attn_every)
         cache = cache._replace(
             ssm_conv=torch.stack(convs).reshape(lead + cache.ssm_conv.shape[2:]),
@@ -364,7 +528,7 @@ def decode_step(params: dict, cfg, cache: Cache, tokens: torch.Tensor,
 
     elif fam == "ssm":
         wkv, sa, sf = [], [], []
-        for l, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        for l, lp in enumerate(layers(params, "layers", cfg.n_layers)):
             st = rk.RWKVState(cache.wkv[l], cache.shift_att[l], cache.shift_ffn[l])
             t, st = rk.rwkv6_time_mix_decode(lp["mix"], cfg, rmsnorm(lp["ln1"], x, eps), st)
             x = x + t

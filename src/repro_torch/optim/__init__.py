@@ -1,2 +1,2 @@
 from .adamw import (AdamWConfig, OptState, QTensor, apply_update, cosine_lr,
-                    global_norm, init_opt_state)
+                    global_norm, init_opt_state, opt_pspecs)

@@ -9,7 +9,10 @@ moment_dtype:
 
 The optimizer state mirrors the param tree leaf for leaf.  ``apply_update``
 is functional, as the reference's: it returns new tensors and leaves its
-inputs as they were.  ``opt_pspecs`` waits for sharding (ROADMAP A.8.3).
+inputs as they were.  ``opt_pspecs`` gives the state's PartitionSpecs;
+with DTensor params and moments the update runs as DTensor ops, each new
+leaf at its old one's placements (a last axis whose blocks would split
+unevenly over its shards is gathered before it is blocked).
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import pytree
+from ..models.sharding import P
 
 F32 = torch.float32
 _BLOCK = 128
@@ -63,7 +68,24 @@ pytree.register_node(QTensor, lambda t: ((t.q, t.scale, t.offset), t.log),
                      lambda log, ch: QTensor(q=ch[0], scale=ch[1], offset=ch[2], log=log))
 
 
+def _blockable(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose last axis is sharded so that its 128-wide blocks do
+    not split evenly (or that needs padding), with that axis gathered; any
+    other tensor as it is."""
+    if not isinstance(x, DTensor) or not x.dim():
+        return x
+    last = x.dim() - 1
+    n_blk, pad = -(-x.shape[-1] // _BLOCK), x.shape[-1] % _BLOCK
+    on_last = [i for i, q in enumerate(x.placements) if isinstance(q, Shard) and q.dim == last]
+    ways = math.prod(x.device_mesh.shape[i] for i in on_last)
+    if not on_last or (n_blk % ways == 0 and not pad):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if i in on_last else q
+                                          for i, q in enumerate(x.placements)])
+
+
 def _quantize(x: torch.Tensor, log: bool) -> QTensor:
+    x = _blockable(x)
     xr = x.reshape(x.shape if x.dim() else (1,))
     pad = (-xr.shape[-1]) % _BLOCK
     if pad:
@@ -143,6 +165,18 @@ def _is_q(x) -> bool:
     return isinstance(x, QTensor)
 
 
+def _placed_like(new, old):
+    """``new`` (a tensor or a QTensor) with each DTensor leaf at its ``old``
+    counterpart's placements, so a sharded state keeps its layout from
+    step to step."""
+    if isinstance(new, QTensor):
+        return QTensor(q=_placed_like(new.q, old.q), scale=_placed_like(new.scale, old.scale),
+                       offset=_placed_like(new.offset, old.offset), log=new.log)
+    if isinstance(new, DTensor) and tuple(new.placements) != tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def apply_update(params, grads, state: OptState, cfg: AdamWConfig):
     """Returns (params', state', metrics)."""
     step = state.step + 1
@@ -160,8 +194,9 @@ def apply_update(params, grads, state: OptState, cfg: AdamWConfig):
         decay = cfg.weight_decay if p.dim() >= 2 else 0.0   # no WD on norms
         pf = p.to(F32)
         newp = pf - lr * (upd_ + decay * pf)
-        return (newp.to(p.dtype), _encode(m, cfg.moment_dtype, log=False),
-                _encode(v, cfg.moment_dtype, log=True))
+        return (_placed_like(newp.to(p.dtype), p),
+                _placed_like(_encode(m, cfg.moment_dtype, log=False), m_enc),
+                _placed_like(_encode(v, cfg.moment_dtype, log=True), v_enc))
 
     # flatten by the params' structure; moments keep QTensor nodes as leaves
     p_flat, unflatten = pytree.flatten(params)
@@ -172,3 +207,24 @@ def apply_update(params, grads, state: OptState, cfg: AdamWConfig):
     newp, newm, newv = (unflatten([t[i] for t in out]) for i in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return newp, OptState(step=step, m=newm, v=newv), metrics
+
+
+def opt_pspecs(param_specs, cfg: AdamWConfig):
+    """Optimizer-state PartitionSpecs mirroring the param specs.  int8
+    moments are last-axis-blocked reshapes of the parameter, so each q/scale
+    leaf keeps the parameter's spec (block dim inherits the old last-dim
+    axis; the 128-wide tail and the scale's 1-wide tail are unsharded)."""
+    def spec_for(ps, log):
+        if cfg.moment_dtype != "int8":
+            return ps
+        front = tuple(ps)[:-1] if len(ps) else ()
+        last = tuple(ps)[-1] if len(ps) else None
+        blocked = P(*front, last, None)
+        return QTensor(q=blocked, scale=blocked, offset=blocked, log=log)
+
+    def is_p(x):
+        return isinstance(x, P)
+
+    mspec = pytree.tree_map(lambda ps: spec_for(ps, False), param_specs, is_leaf=is_p)
+    vspec = pytree.tree_map(lambda ps: spec_for(ps, True), param_specs, is_leaf=is_p)
+    return OptState(step=P(), m=mspec, v=vspec)

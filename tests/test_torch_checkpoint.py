@@ -93,9 +93,16 @@ def test_async_save_then_join_keeps_the_values_at_save_time(tmp_path):
 
 
 def test_restore_onto_shardings_waits_for_sharding(tmp_path):
-    tree = {"x": torch.zeros(4)}
+    """Since sharding landed: a None sharding restores the leaf as without
+    one, and a shardings tree that does not match the target raises.  The
+    placement onto meshes is tests/test_torch_distributed.py's elastic
+    reshard."""
+    tree = {"x": torch.arange(4.0), "y": torch.ones(2)}
     ckpt.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="A.8.3"):
+    got, _ = ckpt.restore(str(tmp_path), 1, tree, shardings={"x": None, "y": None})
+    for k in tree:
+        assert torch.equal(got[k], tree[k]) and type(got[k]) is torch.Tensor
+    with pytest.raises(ValueError, match="2 leaves"):
         ckpt.restore(str(tmp_path), 1, tree, shardings={"x": None})
 
 

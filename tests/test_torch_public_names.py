@@ -12,6 +12,7 @@ one place, below.
 """
 import importlib
 import inspect
+import re
 from pathlib import Path
 
 import numpy as np
@@ -24,23 +25,14 @@ from repro.core import Cluster as JCluster
 from repro.core import Rates as JRates
 from repro_torch.core import Cluster, Rates
 
-# modules of the reference the port does not have yet, and why
+# modules of the reference the port does not have, and why
 NOT_PORTED = {
     "kernels.ops": "by design: only the Pallas interpret defaults; its "
                    "public names are the port's kernels/__init__ exports",
-    "models.sharding": "A.8.3", "train.pipeline": "A.8.3",
-    "launch.dryrun": "A.8.3", "launch.mesh": "A.8.3",
-    "launch.serve": "A.8.3", "launch.specs": "A.8.3", "launch.train": "A.8.3",
-    "roofline": "A.8.4", "roofline.analytic": "A.8.4", "roofline.hlo": "A.8.4",
 }
 
 # by design: no trace counters (nothing is traced); no Pallas layout
-# constants or interpret switch; sharding annotations and specs wait for
-# A.8.3
-_SHARDING = {"constrain", "get_rules", "set_rules", "logical_pspec", "LP",
-             "param_pspecs", "cache_pspecs", "attention_pspecs", "embed_pspecs",
-             "mlp_pspecs", "rmsnorm_pspecs", "moe_pspecs", "mamba2_pspecs",
-             "rwkv6_pspecs", "ssm_state_pspecs", "rwkv_state_pspecs"}
+# constants or interpret switch
 _PALLAS = {"resolve_interpret", "FLAG_BASE", "LANE", "WIDTH", "SUB"}
 MISSING_BY_DESIGN = {
     "core": {"trace_count", "reset_trace_count"},
@@ -51,16 +43,31 @@ MISSING_BY_DESIGN = {
     "kernels.queue_update": _PALLAS,
     "kernels.route_commit": _PALLAS,
     "kernels.weighted_argmin": _PALLAS,
-    "models": _SHARDING,
-    "models.layers": _SHARDING,
-    "models.transformer": _SHARDING,
-    "models.moe": _SHARDING,
-    "models.ssm": _SHARDING,
-    "models.rwkv": _SHARDING,
-    "optim": {"opt_pspecs"},
-    "optim.adamw": {"opt_pspecs"},
-    "train": {"pipeline_forward"},
+    # a parser of XLA's compiled HLO text: the port makes none
+    "launch.dryrun": {"parse_collective_bytes"},
 }
+# by design, the port's own names where JAX has GSPMD: its PartitionSpec
+# and NamedSharding, the spec -> DTensor placements map, the current mesh
+# a mesh-axis collective resolves against, and the dry run's fake world
+PORT_ONLY = {
+    "models.sharding": {"P", "NamedSharding", "placements", "mesh_axes", "even_spec",
+                        "to_spec", "use_mesh", "current_mesh", "sharded_region",
+                        "resolve_grad", "note_gather", "GATHERS"},
+    "launch.specs": {"shard_tree"},
+    "launch.mesh": {"production_shape"},
+    "launch.dryrun": {"StepCounter", "fake_world", "trace_step", "trace_cell",
+                      "local_bytes", "greedy"},
+}
+# launcher flags that differ by design: --device picks the card or the
+# CPU; --save-hlo writes XLA's HLO, which the port does not make
+FLAGS_ADDED = {"launch.train": {"--device"}, "launch.serve": {"--device"},
+               "launch.dryrun": set()}
+FLAGS_DROPPED = {"launch.train": set(), "launch.serve": set(),
+                 "launch.dryrun": {"--save-hlo"}}
+# the dry run's record: XLA's compiled-artifact fields have no counterpart;
+# the port records its traced cost and its gathers instead
+RECORD_DROPPED = {"cost_xla_flat", "collectives_flat", "hlo_lines"}
+RECORD_ADDED = {"cost", "notes"}
 # the reference's draw key is a torch.Generator (``gen``) or the routing
 # draws (``rnd``) at the draw seams; Pallas knobs come in as ``**kw``
 RENAMED = {"key": ("key", "gen", "rnd")}
@@ -148,3 +155,30 @@ def test_mean_slots_and_same_rack_equal_the_reference():
         assert same.dtype == torch.bool and same.shape == (M, M)
         assert same.device == Cluster(M, K).rack_of.device
         np.testing.assert_array_equal(same.numpy(), np.asarray(JCluster(M, K).same_rack))
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ONLY))
+def test_the_ports_own_names_exist(name):
+    port = importlib.import_module(f"repro_torch.{name}")
+    assert PORT_ONLY[name] <= set(vars(port))
+
+
+_FLAG = re.compile(r"add_argument\(\s*\"(--[a-z0-9-]+)\"")
+
+
+@pytest.mark.parametrize("name", sorted(FLAGS_ADDED))
+def test_launcher_flags_equal_the_reference(name):
+    def flags(pkg):
+        return set(_FLAG.findall(Path(importlib.import_module(f"{pkg}.{name}").__file__)
+                                 .read_text()))
+    ref, port = flags("repro"), flags("repro_torch")
+    assert port == (ref - FLAGS_DROPPED[name]) | FLAGS_ADDED[name]
+
+
+def test_dryrun_record_fields_by_design():
+    def fields(pkg):
+        text = Path(importlib.import_module(f"{pkg}.launch.dryrun").__file__).read_text()
+        return set(re.findall(r'rec\["([a-z_]+)"\]', text))
+    ref, port = fields("repro"), fields("repro_torch")
+    assert RECORD_DROPPED <= ref and not RECORD_DROPPED & port
+    assert port == (ref - RECORD_DROPPED) | RECORD_ADDED

@@ -195,9 +195,16 @@ def test_ef_encode_equals_the_reference(shape):
     assert float((dec - torch.from_numpy(x)).abs().max() / abs(x).max()) < 0.02
 
 
-def test_ring_allreduce_q8_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="A.8.3"):
+def test_ring_allreduce_q8_waits_for_sharding(tmp_path):
+    """Since sharding landed: outside a current mesh the ring raises (the
+    axis name resolves against nothing); over an axis of one rank it
+    returns its input.  The 8-rank ring against the reference is
+    tests/test_torch_distributed.py's."""
+    with pytest.raises(RuntimeError, match="no current mesh"):
         ttrain.ring_allreduce_q8(torch.zeros(4), "pod")
+    from _torch_dist import run_ranks
+    (same,) = run_ranks("ring_axis_one", 1, tmp_path, timeout=60)
+    assert same
 
 
 @pytest.mark.parametrize("kw", [dict(vocab=1024, seq_len=64, global_batch=8),
