@@ -74,6 +74,13 @@ each in one slot loop.  Seed k of every cell draws from its own
 ``simulate(..., key=seed0 + k)`` uses, so a cell equals that looped run bit
 for bit when both share the grid's ``a_max``.  The slot steps also take one
 cell's unbatched state (the level-2 parity tests feed them so).
+
+Tracing.  Under a recording ``torch.profiler`` the entry points and the
+slot loop record the host spans of ``repro_torch.spans``: the grid's fixed
+cost a call (``sim.grid.*``), a slot's draws (``sim.draws``, with its
+blocks, stacks and class grids inside) and the phases of every step
+(``sim.step.*``, ``sim.scenario.speed``), the same names in every family.
+Without a profiler a span site costs one check.
 """
 from __future__ import annotations
 
@@ -93,6 +100,7 @@ from ..scenarios.build import (ScenarioData, host, placement_cdf, realize,
                                sample_locals_scenario, scenario_row,
                                speed_at, stack_scenarios)
 from ..scenarios.spec import scenario_names
+from ..spans import span
 from .cluster import (GEOMETRIC, LOCAL, LOGNORMAL, RACK, REMOTE, Cluster,
                       Rates, durations_from_normal, durations_from_uniform,
                       locality_class, safe_inv_rates, sample_locals,
@@ -430,44 +438,47 @@ class TorchDraws:
 
     def _fill(self, t0: int):
         """Draws for slots t0 .. t0 + block - 1, each field [n, ...]."""
-        g, c, M, dev = self.gen, self.cluster, self.cluster.M, self.lam_t.device
-        rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
-        lam = self.lam_t[t0:t0 + self.block]
-        n = lam.shape[0]
-        raw = torch.poisson(lam, generator=g).to(torch.int32)
-        size = lambda rows: ({"size_e": torch.randn(
-            (n, rows), generator=g, device=dev) * _HALF_SQRT2}
-                             if self.sized else {})
-        if self.family == "fcfs":
-            return FCFSDraws(raw, rand(n, M), self._locals(t0, n, self.S),
-                             self._dur(n, self.S), **size(self.S))
-        locals_ = self._locals(t0, n, self.a_max)
-        if self.family == "sq":
-            S, pod = self.S, self.pod
-            extra = size(S)
-            if S < M:
-                extra["rows"] = rand(n, M)
-            if pod is not None:
-                extra["cand"] = uniform_int(g, (n, S, pod.d), self.cand_hi, dev)
-            if self.sequential:
-                extra["route"] = rand(n, self.a_max, c.n_replicas)
-            return SQDraws(raw, locals_, self._dur(n, S),
-                           rand(n, S, M if pod is None else 1 + pod.d),
-                           rand(n, S), **extra)
-        dur = self._dur(n, M)
-        extra = size(M)
-        if self.pod is None and self.sequential:
-            extra["tie_rnd"] = rand(n, M)
-        elif self.pod is None:
-            extra["prio"] = rand(n, M).argsort(dim=1).to(torch.int32)
-        else:
-            cls = locality_class(c, locals_)
-            ci, _, cv = pod_candidates(g, c, locals_, cls, self.pod,
-                                       cand_cls=self.cand_cls)
-            extra.update(cand_idx=ci, cand_valid=cv)
-            if self.sequential:
-                extra["cand_rnd"] = rand(*ci.shape)
-        return SlotDraws(raw, locals_, None, dur, **extra)
+        with span("sim.draws.fill"):
+            g, c, M = self.gen, self.cluster, self.cluster.M
+            dev = self.lam_t.device
+            rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
+            lam = self.lam_t[t0:t0 + self.block]
+            n = lam.shape[0]
+            raw = torch.poisson(lam, generator=g).to(torch.int32)
+            size = lambda rows: ({"size_e": torch.randn(
+                (n, rows), generator=g, device=dev) * _HALF_SQRT2}
+                if self.sized else {})
+            if self.family == "fcfs":
+                return FCFSDraws(raw, rand(n, M), self._locals(t0, n, self.S),
+                                 self._dur(n, self.S), **size(self.S))
+            locals_ = self._locals(t0, n, self.a_max)
+            if self.family == "sq":
+                S, pod = self.S, self.pod
+                extra = size(S)
+                if S < M:
+                    extra["rows"] = rand(n, M)
+                if pod is not None:
+                    extra["cand"] = uniform_int(g, (n, S, pod.d),
+                                                self.cand_hi, dev)
+                if self.sequential:
+                    extra["route"] = rand(n, self.a_max, c.n_replicas)
+                return SQDraws(raw, locals_, self._dur(n, S),
+                               rand(n, S, M if pod is None else 1 + pod.d),
+                               rand(n, S), **extra)
+            dur = self._dur(n, M)
+            extra = size(M)
+            if self.pod is None and self.sequential:
+                extra["tie_rnd"] = rand(n, M)
+            elif self.pod is None:
+                extra["prio"] = rand(n, M).argsort(dim=1).to(torch.int32)
+            else:
+                cls = locality_class(c, locals_)
+                ci, _, cv = pod_candidates(g, c, locals_, cls, self.pod,
+                                           cand_cls=self.cand_cls)
+                extra.update(cand_idx=ci, cand_valid=cv)
+                if self.sequential:
+                    extra["cand_rnd"] = rand(*ci.shape)
+            return SlotDraws(raw, locals_, None, dur, **extra)
 
     def __call__(self, t: int):
         if self._buf is None or not self._t0 <= t < self._t0 + self.block:
@@ -475,7 +486,8 @@ class TorchDraws:
         i = t - self._t0
         d = type(self._buf)(*(None if x is None else x[i] for x in self._buf))
         if self.family == "bp" and self.pod is None:
-            d = d._replace(cls=locality_class(self.cluster, d.locals_))
+            with span("sim.draws.class_grid"):
+                d = d._replace(cls=locality_class(self.cluster, d.locals_))
         return d
 
 
@@ -512,8 +524,9 @@ class GridDraws:
         if self.full_bp:
             if self._cls is None or not self._c0 <= i < self._c0 + self.cls_block:
                 self._c0 = i
-                self._cls = locality_class(
-                    self.cluster, self._buf.locals_[i:i + self.cls_block])
+                with span("sim.draws.class_grid"):
+                    self._cls = locality_class(
+                        self.cluster, self._buf.locals_[i:i + self.cls_block])
             d = d._replace(cls=self._cls[i - self._c0])
         return d
 
@@ -528,7 +541,8 @@ def _stack_cells(parts):
             return None
         xs = [torch.zeros_like(have[0]) if x is None else x for x in xs]
         return xs[0][:, None] if len(xs) == 1 else torch.stack(xs, dim=1)
-    return type(parts[0])(*(stack(xs) for xs in zip(*parts)))
+    with span("sim.draws.stack"):
+        return type(parts[0])(*(stack(xs) for xs in zip(*parts)))
 
 
 def _lift(x):
@@ -854,44 +868,53 @@ def _bp_step(state: BPState, sums: RawSums, draws: SlotDraws, *,
         cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
                                          state.Q.device).expand(
             a_max, -1).contiguous()
-    if speed is not None:
-        speed = speed.expand(N, -1, -1)
-    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
-                                             state.cls)
-    if tcfg is not None:
-        # sojourn = completion slot - arrival slot of the task in service
-        tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
-    Q, busy, rem, cls_serv, starts, n_started, pick, start = _bp_schedule(
-        draws.dur, state.Q, busy, rem, state.cls,
-        servable=None if speed is None else speed > 0, scen=scen,
-        size_e=draws.size_e)
+    with span("sim.step.service"):
+        if speed is not None:
+            speed = speed.expand(N, -1, -1)
+        busy, rem, completed = _progress_service(state.busy, state.rem, speed,
+                                                 state.cls)
+        if tcfg is not None:
+            # sojourn = completion slot - arrival slot of the task in service
+            tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
+    with span("sim.step.schedule"):
+        Q, busy, rem, cls_serv, starts, n_started, pick, start = _bp_schedule(
+            draws.dur, state.Q, busy, rem, state.cls,
+            servable=None if speed is None else speed > 0, scen=scen,
+            size_e=draws.size_e)
     if tcfg is not None and tele.ring is not None:
-        m = torch.arange(cluster.M, device=Q.device)
-        tlm.ring_pop(tele, tcfg, m * 3 + pick, start, m.expand(N, -1),
-                     distinct=True)
-    mask, clipped = _arrival_batch(draws, a_max)
-    Q, sel, sel_cls, probe = _bp_route_batch(
-        draws, Q, draws.cls, mask, inv_rate_m, pod,
-        sequential=(cfg.route_mode == "sequential"),
-        class_tiebreak=class_tiebreak, cand_cls=cand_cls, tcfg=tcfg,
-        cluster=cluster)
+        with span("sim.step.telemetry"):
+            m = torch.arange(cluster.M, device=Q.device)
+            tlm.ring_pop(tele, tcfg, m * 3 + pick, start, m.expand(N, -1),
+                         distinct=True)
+    with span("sim.step.route"):
+        mask, clipped = _arrival_batch(draws, a_max)
+        Q, sel, sel_cls, probe = _bp_route_batch(
+            draws, Q, draws.cls, mask, inv_rate_m, pod,
+            sequential=(cfg.route_mode == "sequential"),
+            class_tiebreak=class_tiebreak, cand_cls=cand_cls, tcfg=tcfg,
+            cluster=cluster)
     if tcfg is not None:
-        tlm.ring_push(tele, tcfg, sel.to(torch.int64) * 3 + sel_cls, mask, t)
+        with span("sim.step.telemetry"):
+            tlm.ring_push(tele, tcfg, sel.to(torch.int64) * 3 + sel_cls,
+                          mask, t)
 
-    routed = _class_hits(sel_cls, mask).sum(dim=-2).to(_F)
-    busy_n = busy.sum(dim=-1).to(_F)
-    Ns = Q.sum(dim=(-2, -1)).to(_F) + busy_n
-    arr = mask.sum(dim=-1).to(_F)
-    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
-                comp=completed.sum(dim=-1).to(_F), starts=starts,
-                routed=routed, busy_n=busy_n, routes=arr, scheds=n_started,
-                measure=measure)
+    with span("sim.step.accumulate"):
+        routed = _class_hits(sel_cls, mask).sum(dim=-2).to(_F)
+        busy_n = busy.sum(dim=-1).to(_F)
+        Ns = Q.sum(dim=(-2, -1)).to(_F) + busy_n
+        arr = mask.sum(dim=-1).to(_F)
+        sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
+                    comp=completed.sum(dim=-1).to(_F), starts=starts,
+                    routed=routed, busy_n=busy_n, routes=arr,
+                    scheds=n_started, measure=measure)
     if tcfg is not None:
-        tlm.collect_step(
-            tele, tcfg, t=t, T=cfg.T, N=Ns, q_mass=Q.sum(dim=-2),
-            qlen=Q.sum(dim=-1), workload=_bp_workload(Q, inv_rate_m),
-            arrivals=arr, clipped=clipped, completions=completed.sum(dim=-1),
-            busy_n=busy_n, probe=probe or tlm.ZERO_PROBE)
+        with span("sim.step.telemetry"):
+            tlm.collect_step(
+                tele, tcfg, t=t, T=cfg.T, N=Ns, q_mass=Q.sum(dim=-2),
+                qlen=Q.sum(dim=-1), workload=_bp_workload(Q, inv_rate_m),
+                arrivals=arr, clipped=clipped,
+                completions=completed.sum(dim=-1), busy_n=busy_n,
+                probe=probe or tlm.ZERO_PROBE)
     return BPState(Q, busy, rem, cls_serv), sums
 
 
@@ -1118,53 +1141,60 @@ def _sq_step(state: SQState, sums: RawSums, draws: SQDraws, *,
     of an [N, M, 3] queue, the replica triples as candidates of class 0,
     all valid (ties by replica slot; the class and valid operands shared by
     every cell)."""
-    busy, rem, completed = _progress_service(
-        state.busy, state.rem,
-        None if speed is None else speed.expand(state.Q.shape[0], -1, -1),
-        state.cls)
+    with span("sim.step.service"):
+        busy, rem, completed = _progress_service(
+            state.busy, state.rem,
+            None if speed is None else speed.expand(state.Q.shape[0], -1, -1),
+            state.cls)
+        if tcfg is not None:
+            tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
+    with span("sim.step.schedule"):
+        Q, busy, rem, cls_serv, starts, n_sched, rows, tgt, granted, *probe = \
+            _sq_schedule(draws, cluster, state.Q, busy, rem, state.cls,
+                         consts=consts, S=min(cfg.s_max, cluster.M),
+                         variant=variant, pod=pod, speed=speed, scen=scen,
+                         tcfg=tcfg)
     if tcfg is not None:
-        tlm.record_sojourns(tele, tcfg, t, cfg.warmup, completed)
-    Q, busy, rem, cls_serv, starts, n_sched, rows, tgt, granted, *probe = \
-        _sq_schedule(draws, cluster, state.Q, busy, rem, state.cls,
-                     consts=consts, S=min(cfg.s_max, cluster.M),
-                     variant=variant, pod=pod, speed=speed, scen=scen,
-                     tcfg=tcfg)
-    if tcfg is not None:
-        tlm.ring_pop(tele, tcfg, tgt, granted, rows)
-    mask, clipped = _arrival_batch(draws, a_max)
-    if cfg.route_mode == "sequential":
-        Q, sel = _jsq_route_sequential(draws, Q, mask)
-    else:
-        Q3, _W, sel, _scls, _val = route_commit(
-            torch.nn.functional.pad(Q[..., None], (0, 2)), mask,
-            consts.unit_inv, cand_idx=draws.locals_,
-            cand_cls=consts.zero_cls, cand_valid=consts.one_valid)
-        Q = Q3[..., 0]
-    if tcfg is not None:
-        tlm.ring_push(tele, tcfg, sel, mask, t)
-
-    busy_n = busy.sum(dim=-1).to(_F)
-    Ns = Q.sum(dim=-1).to(_F) + busy_n
-    arr = mask.sum(dim=-1).to(_F)
-    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
-                comp=completed.sum(dim=-1).to(_F), starts=starts,
-                routed=torch.zeros_like(starts), busy_n=busy_n, routes=arr,
-                scheds=n_sched, measure=measure)
-    if tcfg is not None:
-        # workload proxy: queued work at the local rate (JSQ queues are
-        # local to their server); drained servers contribute 0
-        if speed is None:
-            inv_l = safe_inv_rates(consts.rates)[LOCAL]
+        with span("sim.step.telemetry"):
+            tlm.ring_pop(tele, tcfg, tgt, granted, rows)
+    with span("sim.step.route"):
+        mask, clipped = _arrival_batch(draws, a_max)
+        if cfg.route_mode == "sequential":
+            Q, sel = _jsq_route_sequential(draws, Q, mask)
         else:
-            inv_l = safe_inv_rates(speed[..., LOCAL] * consts.rates[LOCAL])
-        inv_l = torch.where(torch.isfinite(inv_l), inv_l, 0.0)
-        zero = torch.zeros_like(Ns)
-        tlm.collect_step(
-            tele, tcfg, t=t, T=cfg.T, N=Ns,
-            q_mass=torch.stack([Q.sum(dim=-1).to(_F), zero, zero], dim=-1),
-            qlen=Q, workload=Q.to(_F) * inv_l, arrivals=arr, clipped=clipped,
-            completions=completed.sum(dim=-1), busy_n=busy_n,
-            probe=probe[0] or tlm.ZERO_PROBE)
+            Q3, _W, sel, _scls, _val = route_commit(
+                torch.nn.functional.pad(Q[..., None], (0, 2)), mask,
+                consts.unit_inv, cand_idx=draws.locals_,
+                cand_cls=consts.zero_cls, cand_valid=consts.one_valid)
+            Q = Q3[..., 0]
+    if tcfg is not None:
+        with span("sim.step.telemetry"):
+            tlm.ring_push(tele, tcfg, sel, mask, t)
+
+    with span("sim.step.accumulate"):
+        busy_n = busy.sum(dim=-1).to(_F)
+        Ns = Q.sum(dim=-1).to(_F) + busy_n
+        arr = mask.sum(dim=-1).to(_F)
+        sums = _acc(sums, in_half2=in_half2, N=Ns, arr=arr, clipped=clipped,
+                    comp=completed.sum(dim=-1).to(_F), starts=starts,
+                    routed=torch.zeros_like(starts), busy_n=busy_n,
+                    routes=arr, scheds=n_sched, measure=measure)
+    if tcfg is not None:
+        with span("sim.step.telemetry"):
+            # workload proxy: queued work at the local rate (JSQ queues are
+            # local to their server); drained servers contribute 0
+            if speed is None:
+                inv_l = safe_inv_rates(consts.rates)[LOCAL]
+            else:
+                inv_l = safe_inv_rates(speed[..., LOCAL] * consts.rates[LOCAL])
+            inv_l = torch.where(torch.isfinite(inv_l), inv_l, 0.0)
+            zero = torch.zeros_like(Ns)
+            tlm.collect_step(
+                tele, tcfg, t=t, T=cfg.T, N=Ns,
+                q_mass=torch.stack([Q.sum(dim=-1).to(_F), zero, zero], dim=-1),
+                qlen=Q, workload=Q.to(_F) * inv_l, arrivals=arr,
+                clipped=clipped, completions=completed.sum(dim=-1),
+                busy_n=busy_n, probe=probe[0] or tlm.ZERO_PROBE)
     return SQState(Q, busy, rem, cls_serv), sums
 
 
@@ -1189,49 +1219,58 @@ def _fcfs_step(state: FCFSState, sums: RawSums, draws: FCFSDraws, *,
     windows only (no per-task identity to keep in a ring)."""
     G = min(cfg.s_max, cluster.M)
     N = state.busy.shape[0]
-    if speed is not None:
-        speed = speed.expand(N, -1, -1)
-    busy, rem, completed = _progress_service(state.busy, state.rem, speed,
-                                             state.cls)
-    idle = ~busy if speed is None else ~busy & (speed > 0).any(dim=-1)
-    r = torch.where(idle, draws.rank, _INF)
-    rows = torch.argsort(r, dim=-1, stable=True)[:, :G]         # [N, G]
-    locals_g = draws.locals_.to(torch.int64)                  # [N, G, n_rep]
-    rack_of = consts.rack_of
-    is_local = (locals_g == rows[..., None]).any(dim=-1)
-    in_rack = (rack_of[locals_g] == rack_of[rows][..., None]).any(dim=-1)
-    start_cls = torch.where(is_local, LOCAL, torch.where(in_rack, RACK, REMOTE))
-    grant = idle.gather(-1, rows) & (
-        torch.arange(G, device=rows.device) < state.C[:, None])
-    if speed is not None:
-        grant = grant & (_rows_of(speed, rows).gather(
-            -1, start_cls[..., None])[..., 0] > 0)
-    work = _task_work(draws.dur.gather(-1, start_cls[..., None])[..., 0], scen,
-                      draws.size_e)
-    C = state.C - grant.sum(dim=-1).to(torch.int32)
-    busy = busy.scatter(-1, rows, busy.gather(-1, rows) | grant)
-    rem = rem.scatter(-1, rows, torch.where(grant, work, rem.gather(-1, rows)))
-    cls = state.cls.scatter(-1, rows, torch.where(
-        grant, start_cls.to(torch.int32), state.cls.gather(-1, rows)))
-    starts = _class_hits(start_cls, grant).sum(dim=-2).to(_F)
+    with span("sim.step.service"):
+        if speed is not None:
+            speed = speed.expand(N, -1, -1)
+        busy, rem, completed = _progress_service(state.busy, state.rem, speed,
+                                                 state.cls)
+    with span("sim.step.schedule"):
+        idle = ~busy if speed is None else ~busy & (speed > 0).any(dim=-1)
+        r = torch.where(idle, draws.rank, _INF)
+        rows = torch.argsort(r, dim=-1, stable=True)[:, :G]         # [N, G]
+        locals_g = draws.locals_.to(torch.int64)              # [N, G, n_rep]
+        rack_of = consts.rack_of
+        is_local = (locals_g == rows[..., None]).any(dim=-1)
+        in_rack = (rack_of[locals_g] == rack_of[rows][..., None]).any(dim=-1)
+        start_cls = torch.where(is_local, LOCAL,
+                                torch.where(in_rack, RACK, REMOTE))
+        grant = idle.gather(-1, rows) & (
+            torch.arange(G, device=rows.device) < state.C[:, None])
+        if speed is not None:
+            grant = grant & (_rows_of(speed, rows).gather(
+                -1, start_cls[..., None])[..., 0] > 0)
+        work = _task_work(draws.dur.gather(-1, start_cls[..., None])[..., 0],
+                          scen, draws.size_e)
+        C = state.C - grant.sum(dim=-1).to(torch.int32)
+        busy = busy.scatter(-1, rows, busy.gather(-1, rows) | grant)
+        rem = rem.scatter(-1, rows,
+                          torch.where(grant, work, rem.gather(-1, rows)))
+        cls = state.cls.scatter(-1, rows, torch.where(
+            grant, start_cls.to(torch.int32), state.cls.gather(-1, rows)))
+        starts = _class_hits(start_cls, grant).sum(dim=-2).to(_F)
 
-    mask, clipped = _arrival_batch(draws, a_max)
-    C = C + mask.sum(dim=-1).to(torch.int32)
+    with span("sim.step.route"):
+        mask, clipped = _arrival_batch(draws, a_max)
+        C = C + mask.sum(dim=-1).to(torch.int32)
 
-    busy_n = busy.sum(dim=-1).to(_F)
-    Ns = C.to(_F) + busy_n
-    zero = torch.zeros_like(busy_n)
-    sums = _acc(sums, in_half2=in_half2, N=Ns, arr=mask.sum(dim=-1).to(_F),
-                clipped=clipped, comp=completed.sum(dim=-1).to(_F),
-                starts=starts, routed=torch.zeros_like(starts), busy_n=busy_n,
-                routes=zero, scheds=grant.sum(dim=-1).to(_F), measure=measure)
+    with span("sim.step.accumulate"):
+        busy_n = busy.sum(dim=-1).to(_F)
+        Ns = C.to(_F) + busy_n
+        zero = torch.zeros_like(busy_n)
+        sums = _acc(sums, in_half2=in_half2, N=Ns,
+                    arr=mask.sum(dim=-1).to(_F), clipped=clipped,
+                    comp=completed.sum(dim=-1).to(_F), starts=starts,
+                    routed=torch.zeros_like(starts), busy_n=busy_n,
+                    routes=zero, scheds=grant.sum(dim=-1).to(_F),
+                    measure=measure)
     if tcfg is not None:
-        tlm.collect_step(
-            tele, tcfg, t=t, T=cfg.T, N=Ns,
-            q_mass=torch.stack([C.to(_F), zero, zero], dim=-1),
-            qlen=C[:, None], workload=None, arrivals=mask.sum(dim=-1),
-            clipped=clipped, completions=completed.sum(dim=-1), busy_n=busy_n,
-            probe=tlm.ZERO_PROBE)
+        with span("sim.step.telemetry"):
+            tlm.collect_step(
+                tele, tcfg, t=t, T=cfg.T, N=Ns,
+                q_mass=torch.stack([C.to(_F), zero, zero], dim=-1),
+                qlen=C[:, None], workload=None, arrivals=mask.sum(dim=-1),
+                clipped=clipped, completions=completed.sum(dim=-1),
+                busy_n=busy_n, probe=tlm.ZERO_PROBE)
     return FCFSState(C, busy, rem, cls), sums
 
 
@@ -1289,63 +1328,72 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
                             and bool((scen.base_speed == 1.0).all()))
 
 
-def _run(draw: DrawSource, dev: torch.device, *, algo: str, cluster: Cluster,
-         rates: Rates, cfg: SimConfig, pod: Optional[PodSpec],
-         a_max: int, cells: int, scen: Optional[ScenarioData] = None,
-         homo: bool = True, size=None,
+def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
+         cluster: Cluster, rates: Rates, cfg: SimConfig,
+         pod: Optional[PodSpec], a_max: int, n_cells: int,
+         scen: Optional[ScenarioData] = None, homo: bool = True,
          tcfg: Optional[tlm.TelemetryConfig] = None):
-    """The T-slot loop over ``cells`` cells; returns (raw accumulators,
-    telemetry or None), each leaf with a leading [cells].  ``draw(t)``
-    gives slot t's draws of every cell.  ``scen`` is one ScenarioData all
-    cells share, or a stacked one of S scenarios whose row s the cells s *
-    cells / S .. (s + 1) * cells / S - 1 read.  Unless ``homo``, each slot
-    reads its speed from ``speed_at(scen, t)`` (and the BP family its [M,
-    3] or [cells, M, 3] inverse rates), all on the device.  ``size``: the
-    cells' size law (``_task_work``).  ``tcfg``: collect telemetry."""
+    """The T-slot loop over ``n_cells`` cells; returns (raw accumulators,
+    telemetry or None), each leaf with a leading [cells].  ``cells()``
+    gives (draw, size): ``draw(t)`` is slot t's draws of every cell, and
+    ``size`` the cells' size law (``_task_work``); it runs with the rest
+    of the loop's set-up, in the span ``sim.grid.cells``.  ``scen`` is one
+    ScenarioData all cells share, or a stacked one of S scenarios whose row
+    s the cells s * cells / S .. (s + 1) * cells / S - 1 read.  Unless
+    ``homo``, each slot reads its speed from ``speed_at(scen, t)`` (and
+    the BP family its [M, 3] or [cells, M, 3] inverse rates), all on the
+    device.  ``tcfg``: collect telemetry."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
-    rate_vec = rates.as_array(dev)
     M = cluster.M
     stacked = scen is not None and scen.base_speed.ndim == 2
-    kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=size)
-    if family == "bp":
-        cand_cls = None
-        if pod is not None:
-            cand_cls = pod_candidate_classes(cluster.n_replicas, pod,
-                                             dev).expand(a_max, -1).contiguous()
-        state = BPState.zero(M, dev, cells)
-        step = functools.partial(
-            _bp_step, pod=pod,
-            class_tiebreak=(algo != "balanced_pandas_randomtie"),
-            cand_cls=cand_cls, **kw)
-    else:
-        consts = step_consts(cluster, rates, pod, a_max, dev)
-        if family == "sq":
-            state = SQState.zero(M, dev, cells)
+    with span("sim.grid.cells"):
+        draw, size = cells()
+        rate_vec = rates.as_array(dev)
+        kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=size)
+        if family == "bp":
+            cand_cls = None
+            if pod is not None:
+                cand_cls = pod_candidate_classes(
+                    cluster.n_replicas, pod, dev).expand(a_max, -1).contiguous()
+            state = BPState.zero(M, dev, n_cells)
             step = functools.partial(
-                _sq_step, consts=consts, pod=pod,
-                variant="priority" if algo == "jsq_priority" else "maxweight",
-                **kw)
+                _bp_step, pod=pod,
+                class_tiebreak=(algo != "balanced_pandas_randomtie"),
+                cand_cls=cand_cls, **kw)
         else:
-            state = FCFSState.zero(M, dev, cells)
-            step = functools.partial(_fcfs_step, consts=consts, **kw)
-    sums = RawSums.zero(dev, cells)
-    tele = None
-    if tcfg is not None:
-        tele = tlm.zero_telemetry(tcfg, M, family, device=dev, cells=cells)
-        step = functools.partial(step, tele=tele, tcfg=tcfg)
-    slot = {"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp" else {}
+            consts = step_consts(cluster, rates, pod, a_max, dev)
+            if family == "sq":
+                state = SQState.zero(M, dev, n_cells)
+                step = functools.partial(
+                    _sq_step, consts=consts, pod=pod,
+                    variant="priority" if algo == "jsq_priority"
+                    else "maxweight", **kw)
+            else:
+                state = FCFSState.zero(M, dev, n_cells)
+                step = functools.partial(_fcfs_step, consts=consts, **kw)
+        sums = RawSums.zero(dev, n_cells)
+        tele = None
+        if tcfg is not None:
+            tele = tlm.zero_telemetry(tcfg, M, family, device=dev,
+                                      cells=n_cells)
+            step = functools.partial(step, tele=tele, tcfg=tcfg)
+        slot = ({"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp"
+                else {})
     for t in range(cfg.T):
         if not homo:
-            speed = speed_at(scen, t)
-            if stacked:     # one row a scenario -> one row a cell
-                S = speed.shape[0]
-                speed = speed[:, None].expand(S, cells // S, M, 3).reshape(
-                    cells, M, 3)
-            slot["speed"] = speed
-            if family == "bp":      # inv_rate_matrix(rates, speed)
-                slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
-        state, sums = step(state, sums, draw(t), measure=t >= cfg.warmup,
+            with span("sim.scenario.speed"):
+                speed = speed_at(scen, t)
+                if stacked:     # one row a scenario -> one row a cell
+                    S = speed.shape[0]
+                    speed = speed[:, None].expand(
+                        S, n_cells // S, M, 3).reshape(n_cells, M, 3)
+                slot["speed"] = speed
+                if family == "bp":      # inv_rate_matrix(rates, speed)
+                    slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
+        with span("sim.draws"):
+            draws = draw(t)
+        state, sums = step(state, sums, draws, measure=t >= cfg.warmup,
                            in_half2=t >= half2_from, t=t, **slot)
     return sums, tele
 
@@ -1370,24 +1418,29 @@ def _run_cells(algo: str, cluster: Cluster, rates: Rates, cfg: SimConfig,
     scenario's device.  Returns (RawSums, Telemetry or None), every leaf
     with a leading [S * n_seeds * L]."""
     dev = scen.base_speed.device
-    rows = ([scenario_row(scen, s) for s in range(len(lam))]
-            if scen.base_speed.ndim == 2 else [scen])
     family = _family(algo)
-    sources, per_cell = [], []
-    for row, lam_row in zip(rows, lam):
-        for k in range(n_seeds):
-            for l in lam_row:
-                gen = torch.Generator(device=dev).manual_seed(seed0 + k)
-                sources.append(_cell_draws(gen, cluster, rates, cfg, pod, a_max,
-                                           float(l), row, family))
-                per_cell.append(row)
-    size = None
-    if any(src.sized for src in sources):
-        col = lambda name: torch.stack([getattr(r, name) for r in per_cell])[:, None]
-        size = SizeLaw(col("size_mu"), col("size_sigma"))
-    return _run(GridDraws(sources), dev, algo=algo, cluster=cluster,
-                rates=rates, cfg=cfg, pod=pod, a_max=a_max,
-                cells=len(sources), scen=scen, homo=homo, size=size, tcfg=tcfg)
+
+    def cells():
+        rows = ([scenario_row(scen, s) for s in range(len(lam))]
+                if scen.base_speed.ndim == 2 else [scen])
+        sources, per_cell = [], []
+        for row, lam_row in zip(rows, lam):
+            for k in range(n_seeds):
+                for l in lam_row:
+                    gen = torch.Generator(device=dev).manual_seed(seed0 + k)
+                    sources.append(_cell_draws(gen, cluster, rates, cfg, pod,
+                                               a_max, float(l), row, family))
+                    per_cell.append(row)
+        size = None
+        if any(src.sized for src in sources):
+            col = lambda name: torch.stack(
+                [getattr(r, name) for r in per_cell])[:, None]
+            size = SizeLaw(col("size_mu"), col("size_sigma"))
+        return GridDraws(sources), size
+
+    return _run(cells, dev, algo=algo, cluster=cluster, rates=rates, cfg=cfg,
+                pod=pod, a_max=a_max, n_cells=sum(map(len, lam)) * n_seeds,
+                scen=scen, homo=homo, tcfg=tcfg)
 
 
 def _grid_leaves(x, shape: tuple):
@@ -1403,22 +1456,28 @@ def _simulate(algo, cluster, rates, load, key, cfg, pod, scenario, pad,
     of the one cell, or None)."""
     family = _family(algo)
     dev = resolve_device(device)
-    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
-    lam = float(load) * lam_cap
-    pod = _pod_for(algo, pod)
-    if a_max is None:
-        a_max = cfg.resolve_a_max(lam, float(scen.lam_shape.max()))
-    if draws is None:
+    with span("sim.grid.realize"):
+        scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad,
+                                device=dev)
+        lam = float(load) * lam_cap
+        pod = _pod_for(algo, pod)
+        if a_max is None:
+            a_max = cfg.resolve_a_max(lam, float(scen.lam_shape.max()))
+        homo = _rates_homogeneous(scen)
+
+    def cells():
+        if draws is not None:
+            return (lambda t: _lift(draws(t))), scen
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(key))
-        source = GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,
-                                        lam, scen, family)])
-    else:
-        source = lambda t: _lift(draws(t))
-    sums, tele = _run(source, dev, algo=algo, cluster=cluster, rates=rates,
-                      cfg=cfg, pod=pod, a_max=a_max, cells=1, scen=scen,
-                      homo=_rates_homogeneous(scen), size=scen, tcfg=tcfg)
-    res = summarize(_drop(sums), algo, cluster, rates, pod)
+        return GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,
+                                      lam, scen, family)]), scen
+
+    sums, tele = _run(cells, dev, algo=algo, cluster=cluster, rates=rates,
+                      cfg=cfg, pod=pod, a_max=a_max, n_cells=1, scen=scen,
+                      homo=homo, tcfg=tcfg)
+    with span("sim.grid.summarize"):
+        res = summarize(_drop(sums), algo, cluster, rates, pod)
     return res, None if tele is None else _drop(tele)
 
 
@@ -1490,18 +1549,23 @@ def _grid(algo, cluster, rates, loads, n_seeds, cfg, pod, seed0, scenario,
     """``simulate_grid`` and ``simulate_grid_with_telemetry``: (SimResult,
     Telemetry or None), every leaf leading by [n_seeds, n_loads]."""
     dev = resolve_device(device)
-    scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad, device=dev)
-    lam = [float(l) * lam_cap for l in loads]
-    pod = _pod_for(algo, pod)
-    if a_max is None:
-        a_max = cfg.resolve_a_max(float(np.max(np.asarray(lam, np.float32))),
-                                  float(scen.lam_shape.max()))
+    with span("sim.grid.realize"):
+        scen, lam_cap = realize(scenario, cluster, rates, cfg.T, pad,
+                                device=dev)
+        lam = [float(l) * lam_cap for l in loads]
+        pod = _pod_for(algo, pod)
+        if a_max is None:
+            a_max = cfg.resolve_a_max(
+                float(np.max(np.asarray(lam, np.float32))),
+                float(scen.lam_shape.max()))
+        homo = _rates_homogeneous(scen)
     sums, tele = _run_cells(algo, cluster, rates, cfg, pod, a_max, scen, [lam],
-                            n_seeds, seed0, homo=_rates_homogeneous(scen),
-                            tcfg=tcfg)
+                            n_seeds, seed0, homo=homo, tcfg=tcfg)
     shape = (n_seeds, len(lam))
-    res = summarize(_grid_leaves(sums, shape), algo, cluster, rates, pod)
-    return res, None if tele is None else _grid_leaves(tele, shape)
+    with span("sim.grid.summarize"):
+        res = summarize(_grid_leaves(sums, shape), algo, cluster, rates, pod)
+        tele = None if tele is None else _grid_leaves(tele, shape)
+    return res, tele
 
 
 def simulate_grid(algo: str, cluster: Cluster, rates: Rates, loads,
@@ -1588,11 +1652,12 @@ def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
                         f"{type(telemetry).__name__}")
     devs = [resolve_device(d) for d in devices] if devices is not None \
         else [resolve_device(device)]
-    names, stacked, lam, a_max = sweep_grid(cluster, rates, cfg, loads,
-                                            scenarios, pad, a_max,
-                                            device=devs[0])
-    pod = _pod_for(algo, pod)
-    lam = lam.tolist()
+    with span("sim.grid.realize"):
+        names, stacked, lam, a_max = sweep_grid(cluster, rates, cfg, loads,
+                                                scenarios, pad, a_max,
+                                                device=devs[0])
+        pod = _pod_for(algo, pod)
+        lam = lam.tolist()
     S = len(lam)
     parts = []
     for d, idx in zip(devs, np.array_split(np.arange(S), min(len(devs), S))):
@@ -1606,11 +1671,13 @@ def simulate_sweep(algo: str, cluster: Cluster, rates: Rates, loads,
     shape = (S, n_seeds, len(lam[0]))
     join = lambda xs: None if xs[0] is None else \
         torch.cat([x.to(devs[0]) for x in xs]).reshape(shape + xs[0].shape[1:])
-    sums = RawSums(*map(join, zip(*(p[0] for p in parts))))
-    tele = None
-    if telemetry is not None:
-        tele = tlm.Telemetry(*map(join, zip(*(p[1] for p in parts))))
-    return names, summarize(sums, algo, cluster, rates, pod), tele
+    with span("sim.grid.summarize"):
+        sums = RawSums(*map(join, zip(*(p[0] for p in parts))))
+        tele = None
+        if telemetry is not None:
+            tele = tlm.Telemetry(*map(join, zip(*(p[1] for p in parts))))
+        res = summarize(sums, algo, cluster, rates, pod)
+    return names, res, tele
 
 
 def summarize(s: RawSums, algo: str, cluster: Cluster, rates: Rates,

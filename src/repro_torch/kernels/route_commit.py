@@ -22,7 +22,9 @@ candidate classes and batched JSQ's all-valid mask.
 
 ``invrates.LAUNCHES`` counts kernel launches per variant, one a call however
 many cells it routes (and ``MATRIX_LAUNCHES`` those at an [M, 3] operand);
-the CPU path and the plain version never touch them.
+the CPU path and the plain version never touch them.  Under a recording
+``torch.profiler`` the wrapper is the host span ``kernels.route_commit``
+(``repro_torch.spans``), on either path.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..spans import span
 from . import build
 from .invrates import (LAUNCHES, MATRIX_LAUNCHES, check, check_inv_rates,
                        use_kernel)
@@ -81,46 +84,47 @@ def route_commit(Q: torch.Tensor, valid: torch.Tensor,
     sel_cls [B] int32, val [B] f32), as ``ref.route_commit_ref``; with a
     cell axis each with a leading [N].
     """
-    if (cls is None) == (cand_idx is None):
-        raise ValueError("pass cls OR cand_idx/cand_cls/cand_valid")
-    if cand_idx is not None and (prio is not None or cand_cls is None
-                                 or cand_valid is None):
-        raise ValueError("the pod variant takes cand_idx, cand_cls and "
-                         "cand_valid, and no prio")
-    if not use_kernel(Q, "route_commit"):
-        return route_commit_ref(Q, valid, inv_rates, cls=cls, prio=prio,
-                                cand_idx=cand_idx, cand_cls=cand_cls,
-                                cand_valid=cand_valid)
+    with span("kernels.route_commit"):
+        if (cls is None) == (cand_idx is None):
+            raise ValueError("pass cls OR cand_idx/cand_cls/cand_valid")
+        if cand_idx is not None and (prio is not None or cand_cls is None
+                                     or cand_valid is None):
+            raise ValueError("the pod variant takes cand_idx, cand_cls and "
+                             "cand_valid, and no prio")
+        if not use_kernel(Q, "route_commit"):
+            return route_commit_ref(Q, valid, inv_rates, cls=cls, prio=prio,
+                                    cand_idx=cand_idx, cand_cls=cand_cls,
+                                    cand_valid=cand_valid)
 
-    dev = Q.device
-    lead = tuple(Q.shape[:1]) if Q.ndim == 3 else ()
-    M = Q.shape[-2] if Q.ndim >= 2 else -1
-    B = valid.shape[-1] if valid.ndim else -1
-    if not 0 < M <= _MAX_M or 8 * M > _SMEM_LIMIT:
-        raise ValueError(f"route_commit kernel supports 0 < M <= {_MAX_M}")
-    if lead and lead[0] < 1:
-        raise ValueError("route_commit needs at least one cell")
-    check(Q, "Q", torch.int32, lead + (M, 3), dev)
-    check(valid, "valid", torch.bool, lead + (B,), dev)
-    check_inv_rates(inv_rates, M, dev, lead[0] if lead else None)
+        dev = Q.device
+        lead = tuple(Q.shape[:1]) if Q.ndim == 3 else ()
+        M = Q.shape[-2] if Q.ndim >= 2 else -1
+        B = valid.shape[-1] if valid.ndim else -1
+        if not 0 < M <= _MAX_M or 8 * M > _SMEM_LIMIT:
+            raise ValueError(f"route_commit kernel supports 0 < M <= {_MAX_M}")
+        if lead and lead[0] < 1:
+            raise ValueError("route_commit needs at least one cell")
+        check(Q, "Q", torch.int32, lead + (M, 3), dev)
+        check(valid, "valid", torch.bool, lead + (B,), dev)
+        check_inv_rates(inv_rates, M, dev, lead[0] if lead else None)
 
-    if cls is not None:
-        _check_operand(cls, "cls", torch.int32, (B, M), lead, dev)
-        if prio is not None:
-            _check_operand(prio, "prio", torch.int32, (M,), lead, dev)
-    else:
-        C = cand_idx.shape[-1] if cand_idx.ndim >= 2 else -1
-        _check_operand(cand_idx, "cand_idx", torch.int32, (B, C), lead, dev)
-        _check_operand(cand_cls, "cand_cls", torch.int32, (B, C), lead, dev)
-        _check_operand(cand_valid, "cand_valid", torch.bool, (B, C), lead, dev)
-    outs = (torch.empty(lead + (M, 3), dtype=torch.int32, device=dev),
-            torch.empty(lead + (M,), dtype=torch.float32, device=dev),
-            torch.empty(lead + (B,), dtype=torch.int32, device=dev),
-            torch.empty(lead + (B,), dtype=torch.int32, device=dev),
-            torch.empty(lead + (B,), dtype=torch.float32, device=dev))
-    launch(Q, valid, inv_rates, outs, cls=cls, prio=prio, cand_idx=cand_idx,
-           cand_cls=cand_cls, cand_valid=cand_valid)
-    return outs
+        if cls is not None:
+            _check_operand(cls, "cls", torch.int32, (B, M), lead, dev)
+            if prio is not None:
+                _check_operand(prio, "prio", torch.int32, (M,), lead, dev)
+        else:
+            C = cand_idx.shape[-1] if cand_idx.ndim >= 2 else -1
+            _check_operand(cand_idx, "cand_idx", torch.int32, (B, C), lead, dev)
+            _check_operand(cand_cls, "cand_cls", torch.int32, (B, C), lead, dev)
+            _check_operand(cand_valid, "cand_valid", torch.bool, (B, C), lead, dev)
+        outs = (torch.empty(lead + (M, 3), dtype=torch.int32, device=dev),
+                torch.empty(lead + (M,), dtype=torch.float32, device=dev),
+                torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+                torch.empty(lead + (B,), dtype=torch.int32, device=dev),
+                torch.empty(lead + (B,), dtype=torch.float32, device=dev))
+        launch(Q, valid, inv_rates, outs, cls=cls, prio=prio, cand_idx=cand_idx,
+               cand_cls=cand_cls, cand_valid=cand_valid)
+        return outs
 
 
 def _check_operand(t: torch.Tensor, name: str, dtype, shape, lead, device) -> None:

@@ -31,8 +31,8 @@ NOT_PORTED = {
                    "public names are the port's kernels/__init__ exports",
 }
 
-# by design: no trace counters (nothing is traced); no Pallas layout
-# constants or interpret switch
+# by design: no retrace counters (the port compiles nothing, so nothing
+# retraces); no Pallas layout constants or interpret switch
 _PALLAS = {"resolve_interpret", "FLAG_BASE", "LANE", "WIDTH", "SUB"}
 MISSING_BY_DESIGN = {
     "core": {"trace_count", "reset_trace_count"},
