@@ -25,7 +25,11 @@ time.  Scheduling is batched per slot: up to ``SimConfig.s_max`` idle
 servers act against one snapshot, steal conflicts resolved by weight
 priority and queue lengths.  The slot loop is a Python loop over T slots;
 in the batched route mode (the main path) nothing in it reads a device
-value on the host, so the card runs ahead of the loop.
+value on the host, so the card runs ahead of the loop.  On a CUDA device
+the BP family's batched loop (homogeneous rates, no size law, no
+telemetry, the default draws, at least one draw block) replays the slot
+step as CUDA graphs of 8 slots (``_SlotGraphs``, ``_captures``), captured
+once a set of shapes; the rest steps eagerly.
 
 Routing modes:
   batched    — the slot's arrival batch routes through ONE launch of the
@@ -80,10 +84,12 @@ slot loop record the host spans of ``repro_torch.spans``: the grid's fixed
 cost a call (``sim.grid.*``), a slot's draws (``sim.draws``, with its
 blocks, stacks and class grids inside) and the phases of every step
 (``sim.step.*``, ``sim.scenario.speed``), the same names in every family.
-Without a profiler a span site costs one check.
+A replayed slot records no span: ``sim.draws`` then covers a block's fill
+and stack.  Without a profiler a span site costs one check.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -92,6 +98,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels.invrates import LAUNCHES, MATRIX_LAUNCHES, reset_launch_counts
 from ..kernels.ref import route_commit_wseq, workload
 from ..kernels.route_commit import route_commit
 from ..telemetry import collectors as tlm
@@ -531,18 +538,25 @@ class GridDraws:
         return d
 
 
-def _stack_cells(parts):
+def _stack_cells(parts, out=None):
     """One draws tuple from the cells' blocks: every field [n, ...] stacked
     to [n, N, ...]; a field some cells lack (the size law's) is 0 in
-    those."""
-    def stack(xs):
+    those.  ``out``, a draws tuple of [block, N, ...] buffers, takes the
+    stack in its first n rows, and those rows are returned."""
+    def stack(xs, o):
         have = [x for x in xs if x is not None]
         if not have:
             return None
         xs = [torch.zeros_like(have[0]) if x is None else x for x in xs]
-        return xs[0][:, None] if len(xs) == 1 else torch.stack(xs, dim=1)
+        if o is None:
+            return xs[0][:, None] if len(xs) == 1 else torch.stack(xs, dim=1)
+        o = o[:xs[0].shape[0]]
+        return o.copy_(xs[0][:, None]) if len(xs) == 1 else \
+            torch.stack(xs, dim=1, out=o)
+    outs = (None,) * len(parts[0]) if out is None else out
     with span("sim.draws.stack"):
-        return type(parts[0])(*(stack(xs) for xs in zip(*parts)))
+        return type(parts[0])(*(stack(xs, o)
+                                for xs, o in zip(zip(*parts), outs)))
 
 
 def _lift(x):
@@ -633,22 +647,21 @@ def _relation_rows(rack_of: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(own, LOCAL, torch.where(same, RACK, REMOTE))
 
 
-def _acc(sums: RawSums, *, in_half2: bool, N, arr, clipped, comp, starts,
-         routed, busy_n, routes, scheds, measure: bool) -> RawSums:
+def _acc(sums: RawSums, *, in_half2, N, arr, clipped, comp, starts,
+         routed, busy_n, routes, scheds, measure) -> RawSums:
     """Add one slot to the accumulators.  ``measure`` and ``in_half2`` are
-    0/1 weights, so every weighted increment is exact and a skipped add
-    equals the reference's add of 0.0: the sums match its f32 values bit
-    for bit.  All fields update in one packed add."""
-    if not measure:
-        return sums._replace(final_N=N)
-    zero = torch.zeros_like(N)
+    0/1 weights: bools, or float32 tensors that broadcast against ``N`` (a
+    captured slot reads them from the device).  Every weighted increment is
+    exact and one weighted 0 adds 0.0, as the reference's does: the sums
+    match its f32 values bit for bit.  All fields update in one packed
+    add."""
+    h2 = N * in_half2
     inc = torch.cat([torch.stack([
-        torch.ones_like(N), N, zero if in_half2 else N, N if in_half2 else zero,
-        arr, clipped, comp], dim=-1), starts, routed,
-        torch.stack([busy_n, routes, scheds], dim=-1)], dim=-1)
+        torch.ones_like(N), N, N - h2, h2, arr, clipped, comp], dim=-1),
+        starts, routed, torch.stack([busy_n, routes, scheds], dim=-1)], dim=-1)
     cur = torch.cat([torch.stack(sums[:7], dim=-1), sums.starts, sums.routed,
                      torch.stack(sums[9:12], dim=-1)], dim=-1)
-    new = cur + inc
+    new = cur + inc * measure
     return RawSums(*new[..., :7].unbind(-1), new[..., 7:10], new[..., 10:13],
                    *new[..., 13:16].unbind(-1), final_N=N)
 
@@ -1328,6 +1341,173 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
                             and bool((scen.base_speed == 1.0).all()))
 
 
+# ---------------------------------------------------------------------------
+# The slot step as CUDA graphs
+# ---------------------------------------------------------------------------
+
+_GRAPH_SLOTS = 8        # slots one captured graph advances
+_GRAPH_KEYS = 4         # sets of shapes whose graphs are kept (each holds a
+#                         memory pool on the card)
+_GRAPHS: "collections.OrderedDict[tuple, _SlotGraphs]" = collections.OrderedDict()
+
+
+def _captures(device: torch.device, algo: str, route_mode: str, homo: bool,
+              sized: bool, telemetry: bool, grid_draws: bool, T: int,
+              block: int) -> bool:
+    """Does ``_run`` replay the slot step as CUDA graphs (``_SlotGraphs``)?
+    Only for the BP family's batched routing on a CUDA device, on the
+    homogeneous path, without a size law or telemetry, from the default
+    draw source (``GridDraws``, ``block`` slots a fill) and for at least
+    one whole block.  Everything else runs the eager loop: the SQ family
+    and FCFS, sequential routing (it reads each slot's arrival count on the
+    host), speeds, a size law, the collectors, a caller's ``draws``, the
+    CPU, and calls shorter than a block."""
+    return (device.type == "cuda" and _family(algo) == "bp"
+            and route_mode == "batched" and homo and not sized
+            and not telemetry and grid_draws and T >= block)
+
+
+def _launch_counts() -> tuple:
+    """A copy of the kernels' launch counters."""
+    return dict(LAUNCHES), dict(MATRIX_LAUNCHES)
+
+
+def _add_launches(counts: tuple) -> None:
+    """Add ``counts`` (``_launch_counts``) to the launch counters."""
+    for total, add in zip((LAUNCHES, MATRIX_LAUNCHES), counts):
+        for k, v in add.items():
+            total[k] += v
+
+
+class _SlotGraphs:
+    """The BP family's batched slot step captured as CUDA graphs, for one
+    set of shapes (``_run``'s key).  The graphs read and write only tensors
+    held here, refilled for every call by ``copy_``: the state and sums
+    they advance, the step's constant operands (``fixed``), one draw
+    block's buffers ([block, N, ...], written by ``_stack_cells``) and its
+    slots' 0/1 weights (``_acc``), so one graph serves every slot of a run.
+
+    Chunk k's graph runs the slots at positions k * G .. k * G + G - 1 of
+    the block (G = ``_GRAPH_SLOTS``), each chunk on the previous one's
+    outputs; the block's last chunk copies its own back into the held state
+    and sums, which the next block's first chunk reads.  The graphs share
+    one memory pool and always replay in the order they were captured: a
+    partial block replays those of its chunks that it holds whole, and
+    steps eagerly through the slots left.  Full BP's class grid is derived
+    inside the graph from the held replica triples.  ``LAUNCHES`` counts
+    what a replay holds: launches made while capturing are taken back, and
+    each replay adds its graph's."""
+
+    def __init__(self, state, sums: RawSums, fixed: dict, parts, block: int,
+                 cluster: Optional[Cluster]):
+        self.state = type(state)(*map(torch.empty_like, state))
+        self.sums = RawSums(*map(torch.empty_like, sums))
+        self.fixed = {k: torch.empty_like(v) for k, v in fixed.items()}
+        self.draws = type(parts[0])(*(
+            None if x is None else x.new_empty((block, len(parts)) + x.shape[1:])
+            for x in parts[0]))
+        self.weights = torch.empty((2, block), dtype=_F, device=state.Q.device)
+        self.cluster = cluster          # full BP: derive the class grid
+        self.block = block
+        self.chunks = [(s, min(_GRAPH_SLOTS, block - s))
+                       for s in range(0, block, _GRAPH_SLOTS)]
+        self.graphs = []    # (graph, launches it holds, state and sums it leaves)
+
+    def load(self, state, sums: RawSums, fixed: dict) -> None:
+        """A call's initial state and sums and its constant operands."""
+        for dst, src in zip(self.state + self.sums, state + sums):
+            dst.copy_(src)
+        for k, v in fixed.items():
+            self.fixed[k].copy_(v)
+
+    def _slot(self, i: int) -> dict:
+        """The step's arguments of slot i of the block: its draws and
+        weights, views of the held buffers."""
+        d = type(self.draws)(*(None if x is None else x[i] for x in self.draws))
+        if self.cluster is not None:
+            d = d._replace(cls=locality_class(self.cluster, d.locals_))
+        return dict(draws=d, measure=self.weights[0, i],
+                    in_half2=self.weights[1, i])
+
+    def capture(self, step) -> None:
+        """Capture every chunk of the block, after one eager step on scratch
+        state that readies the step's kernels; nothing is computed."""
+        step = functools.partial(step, **self.fixed)
+        saved = _launch_counts()
+        main = torch.cuda.current_stream(self.weights.device)
+        side = torch.cuda.Stream(self.weights.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            step(type(self.state)(*(x.clone() for x in self.state)),
+                 RawSums(*(x.clone() for x in self.sums)), **self._slot(0))
+            torch.cuda.synchronize(self.weights.device)
+            pool = torch.cuda.graph_pool_handle()
+            state, sums = self.state, self.sums
+            for s, n in self.chunks:
+                graph = torch.cuda.CUDAGraph()
+                reset_launch_counts()
+                graph.capture_begin(pool=pool)
+                for i in range(s, s + n):
+                    state, sums = step(state, sums, **self._slot(i))
+                if s + n == self.block:
+                    for dst, src in zip(self.state + self.sums, state + sums):
+                        dst.copy_(src)
+                    state, sums = self.state, self.sums
+                graph.capture_end()
+                self.graphs.append((graph, _launch_counts(), state, sums))
+        main.wait_stream(side)
+        reset_launch_counts()
+        _add_launches(saved)
+
+    def replay(self, n: int, step):
+        """Run the block's first n slots from the held state: every chunk
+        that lies inside them by replay, the slots after it eagerly.
+        Returns the state and sums they leave."""
+        state, sums, done = self.state, self.sums, 0
+        for (s, m), (graph, launches, st, sm) in zip(self.chunks, self.graphs):
+            if s + m > n:
+                break
+            graph.replay()
+            _add_launches(launches)
+            state, sums, done = st, sm, s + m
+        step = functools.partial(step, **self.fixed)
+        for i in range(done, n):
+            state, sums = step(state, sums, **self._slot(i))
+        return state, sums
+
+
+def _replay_loop(key: tuple, draw: GridDraws, step, state, sums: RawSums,
+                 fixed: dict, cfg: SimConfig, half2_from: int) -> RawSums:
+    """``_run``'s slot loop as replays of the ``_SlotGraphs`` of ``key``
+    (captured in the first block of a key's first call): every draw block
+    is filled eagerly from the cells' own generators into the held
+    buffers, exactly as ``GridDraws`` fills it, then replayed.  Nothing in
+    the loop reads the device on the host, so the host fills block k + 1
+    while the card runs block k.  Returns the sums, cloned out of the held
+    buffers."""
+    B = draw.block
+    t = torch.arange(-(-cfg.T // B) * B, device=state.Q.device)
+    weights = torch.stack([t >= cfg.warmup, t >= half2_from]).to(_F)
+    entry = _GRAPHS.pop(key, None)
+    for t0 in range(0, cfg.T, B):
+        with span("sim.draws"):
+            parts = [c._fill(t0) for c in draw.cells]
+            if entry is None:
+                entry = _SlotGraphs(state, sums, fixed, parts, B,
+                                    draw.cluster if draw.full_bp else None)
+            _stack_cells(parts, entry.draws)
+            entry.weights.copy_(weights[:, t0:t0 + B])
+        if t0 == 0:
+            entry.load(state, sums, fixed)
+        if not entry.graphs:
+            entry.capture(step)
+        state, sums = entry.replay(min(B, cfg.T - t0), step)
+    _GRAPHS[key] = entry
+    while len(_GRAPHS) > _GRAPH_KEYS:
+        _GRAPHS.popitem(last=False)
+    return RawSums(*(x.clone() for x in sums))
+
+
 def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
          cluster: Cluster, rates: Rates, cfg: SimConfig,
          pod: Optional[PodSpec], a_max: int, n_cells: int,
@@ -1342,7 +1522,8 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
     s the cells s * cells / S .. (s + 1) * cells / S - 1 read.  Unless
     ``homo``, each slot reads its speed from ``speed_at(scen, t)`` (and
     the BP family its [M, 3] or [cells, M, 3] inverse rates), all on the
-    device.  ``tcfg``: collect telemetry."""
+    device.  ``tcfg``: collect telemetry.  Where ``_captures`` holds, the
+    loop replays CUDA graphs of the step (``_replay_loop``)."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
     M = cluster.M
@@ -1380,6 +1561,16 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
             step = functools.partial(step, tele=tele, tcfg=tcfg)
         slot = ({"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp"
                 else {})
+        grid = isinstance(draw, GridDraws)
+        captured = _captures(dev, algo, cfg.route_mode, homo,
+                             grid and any(c.sized for c in draw.cells),
+                             tcfg is not None, grid, cfg.T,
+                             draw.block if grid else 0)
+    if captured:
+        key = (algo, pod, cluster, a_max, n_cells, draw.block, dev)
+        fixed = dict(slot, **({} if pod is None else {"cand_cls": cand_cls}))
+        return _replay_loop(key, draw, step, state, sums, fixed, cfg,
+                            half2_from), None
     for t in range(cfg.T):
         if not homo:
             with span("sim.scenario.speed"):

@@ -16,15 +16,17 @@ USER_SCOPE range gets a copy among the device's operations.
 
   grid entry point   sim.grid.realize, sim.grid.cells, sim.grid.summarize
                      (once a call: the fixed cost around the slot loop)
-  draws              sim.draws (a slot's ``draw(t)``), inside it
+  draws              sim.draws (a slot's ``draw(t)``, or a block's fill
+                     where the step replays as CUDA graphs), inside it
                      sim.draws.fill (one cell's block), sim.draws.stack
                      (a block of every cell), sim.draws.class_grid (full
                      BP's locality classes)
-  slot step          sim.scenario.speed (a slot's speeds, off the
-                     homogeneous path), sim.step.service,
+  slot step          (eager slots only) sim.scenario.speed (a slot's
+                     speeds, off the homogeneous path), sim.step.service,
                      sim.step.schedule, sim.step.accumulate,
                      sim.step.telemetry (the collectors)
-  routing            sim.step.route (the arrival batch and its routing),
+  routing            (eager slots only) sim.step.route (the arrival
+                     batch and its routing),
                      inside it kernels.route_commit (the kernel's wrapper:
                      checks, outputs and launch)
 """

@@ -1,0 +1,271 @@
+"""The BP family's slot step replayed as CUDA graphs (``simulator._SlotGraphs``).
+
+On the CPU: the weighted accumulators against their branch form, the
+capture rule condition by condition, the stack into held buffers, and the
+held-buffer loop stepped eagerly.  On the card (marked ``gpu``, skipping
+without a CUDA device): captured runs against the eager loop bit for bit,
+the graphs reused by a second call, the launch counters, no host sync in
+the replayed loop, and the spans of the paths that stay eager.  This file
+imports no JAX.
+"""
+import collections
+import contextlib
+
+import pytest
+import torch
+
+from repro_torch.core import simulator as sim
+from repro_torch.kernels import LAUNCHES, reset_launch_counts
+
+PAPER = sim.Rates(0.01, 0.005, 0.002)
+CL = sim.Cluster(500, 10)
+LOADS, SEEDS = (0.5, 0.9), 2
+# warmup (150) and the half-way point (376) fall inside blocks of 256; the
+# last block is partial: 91 slots, 11 chunks of 8 and 3 slots stepped eagerly
+CFG = sim.SimConfig(T=603, warmup=150, route_mode="batched")
+BP_ALGOS = ("balanced_pandas_pod", "balanced_pandas", "balanced_pandas_randomtie")
+
+
+def _branch_acc(sums, *, in_half2, N, arr, clipped, comp, starts, routed,
+                busy_n, routes, scheds, measure):
+    """The accumulators as they were written with Python branches."""
+    if not measure:
+        return sums._replace(final_N=N)
+    zero = torch.zeros_like(N)
+    inc = torch.cat([torch.stack([
+        torch.ones_like(N), N, zero if in_half2 else N, N if in_half2 else zero,
+        arr, clipped, comp], dim=-1), starts, routed,
+        torch.stack([busy_n, routes, scheds], dim=-1)], dim=-1)
+    cur = torch.cat([torch.stack(sums[:7], dim=-1), sums.starts, sums.routed,
+                     torch.stack(sums[9:12], dim=-1)], dim=-1)
+    new = cur + inc
+    return sim.RawSums(*new[..., :7].unbind(-1), new[..., 7:10], new[..., 10:13],
+                       *new[..., 13:16].unbind(-1), final_N=N)
+
+
+def _same_bits(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        assert x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32)), name
+
+
+def _bitwise(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("weights", ["bool", "tensor"])
+@pytest.mark.parametrize("measure,in_half2",
+                         [(False, False), (False, True), (True, False), (True, True)])
+def test_weighted_acc_equals_the_branch_form(measure, in_half2, weights):
+    g = torch.Generator().manual_seed(2 * measure + in_half2)
+    cells = 7
+    f = lambda *s: torch.rand((cells,) + s, generator=g)
+    # sums of every size a long run reaches, with fractional parts that a
+    # rounding of the weighted add would show
+    sums = sim.RawSums(*(x * 10.0 ** torch.randint(0, 8, x.shape, generator=g)
+                         for x in (f(), f(), f(), f(), f(), f(), f(), f(3), f(3),
+                                   f(), f(), f(), f())))
+    count = lambda *s: torch.randint(0, 500, (cells,) + s, generator=g).float()
+    kw = dict(N=count() + 0.5, arr=count(), clipped=count(), comp=count(),
+              starts=count(3), routed=count(3), busy_n=count(), routes=count(),
+              scheds=count())
+    w = (lambda x: x) if weights == "bool" else \
+        (lambda x: torch.tensor(float(x)))
+    got = sim._acc(sums, measure=w(measure), in_half2=w(in_half2), **kw)
+    _same_bits(got, _branch_acc(sums, measure=measure, in_half2=in_half2, **kw))
+
+
+RULE = dict(device=torch.device("cuda"), algo="balanced_pandas_pod",
+            route_mode="batched", homo=True, sized=False, telemetry=False,
+            grid_draws=True, T=5000, block=256)
+
+
+@pytest.mark.parametrize("change,captured", [
+    ({}, True),
+    ({"algo": "balanced_pandas"}, True),
+    ({"algo": "balanced_pandas_randomtie"}, True),
+    ({"T": 256}, True),
+    ({"device": torch.device("cuda:1")}, True),
+    ({"device": torch.device("cpu")}, False),
+    ({"algo": "jsq_maxweight_pod"}, False),
+    ({"algo": "jsq_priority"}, False),
+    ({"algo": "fcfs"}, False),
+    ({"route_mode": "sequential"}, False),
+    ({"homo": False}, False),
+    ({"sized": True}, False),
+    ({"telemetry": True}, False),
+    ({"grid_draws": False}, False),
+    ({"T": 255}, False),
+])
+def test_capture_rule(change, captured):
+    assert sim._captures(**{**RULE, **change}) is captured
+
+
+@pytest.mark.parametrize("cells", [1, 3])
+@pytest.mark.parametrize("n", [5, 8])
+def test_stack_into_held_buffers(cells, n):
+    g = torch.Generator().manual_seed(cells * 10 + n)
+    parts = [sim.SlotDraws(torch.randint(0, 9, (n,), generator=g).int(),
+                           torch.randint(0, 40, (n, 4, 3), generator=g).int(), None,
+                           torch.randint(1, 99, (n, 40, 3), generator=g).int(),
+                           cand_valid=torch.rand((n, 4, 5), generator=g) < 0.5)
+             for _ in range(cells)]
+    want = sim._stack_cells(parts)
+    held = sim.SlotDraws(*(None if x is None else torch.full(
+        (8, cells) + x.shape[1:], 1, dtype=x.dtype) for x in parts[0]))
+    got = sim._stack_cells(parts, held)
+    for name, x, y, h in zip(want._fields, want, got, held):
+        if x is None:
+            assert y is None and h is None, name
+            continue
+        assert torch.equal(x, y) and torch.equal(h[:n], x), name
+        assert y.data_ptr() == h.data_ptr(), name
+        assert (h[n:] == 1).all(), name        # rows past the block's slots kept
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_the_held_buffer_loop_equals_the_eager_loop_on_the_cpu(monkeypatch, algo):
+    """``_replay_loop`` with nothing captured steps one whole block eagerly
+    from the held buffers and weights (warmup and the half-way point inside
+    it): the same sums as the eager loop."""
+    cl, rates = sim.Cluster(20, 4), sim.Rates(0.1, 0.05, 0.02)
+    cfg = sim.SimConfig(T=256, warmup=70, s_max=16, route_mode="batched")
+    run = lambda: sim.simulate_grid(algo, cl, rates, (0.45, 0.85), 2, cfg, device="cpu")
+    want = run()
+    monkeypatch.setattr(sim, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(sim, "_captures", lambda *a, **k: True)
+    monkeypatch.setattr(sim._SlotGraphs, "capture", lambda self, step: None)
+    _bitwise(run(), want)
+    assert len(sim._GRAPHS) == 1
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m gpu)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def fresh(monkeypatch, dev):
+    """An empty graph cache, and a count of the captures made."""
+    monkeypatch.setattr(sim, "_GRAPHS", collections.OrderedDict())
+    captures = []
+    capture = sim._SlotGraphs.capture
+
+    def counted(self, step):
+        captures.append(self)
+        return capture(self, step)
+    monkeypatch.setattr(sim._SlotGraphs, "capture", counted)
+    return captures
+
+
+@contextlib.contextmanager
+def _eager(monkeypatch):
+    """The eager loop, whatever the capture rule says."""
+    with monkeypatch.context() as m:
+        m.setattr(sim, "_captures", lambda *a, **k: False)
+        yield
+
+
+def _grid(dev, algo, seed0=0, cfg=CFG):
+    return sim.simulate_grid(algo, CL, PAPER, LOADS, SEEDS, cfg, seed0=seed0, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", BP_ALGOS)
+def test_captured_grid_equals_the_eager_loop(dev, fresh, monkeypatch, algo):
+    with _eager(monkeypatch):
+        want = _grid(dev, algo)
+    got = _grid(dev, algo)
+    assert len(fresh) == 1
+    _bitwise(got, want)
+    # a second call at new seeds replays the same graphs
+    with _eager(monkeypatch):
+        want = _grid(dev, algo, seed0=11)
+    got = _grid(dev, algo, seed0=11)
+    assert len(fresh) == 1 and len(sim._GRAPHS) == 1
+    _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_captured_simulate_equals_the_eager_loop(dev, fresh, monkeypatch, algo):
+    run = lambda: sim.simulate(algo, CL, PAPER, 0.9, 5, CFG, device=dev)
+    with _eager(monkeypatch):
+        want = run()
+    _bitwise(run(), want)
+    _bitwise(run(), want)
+    assert len(fresh) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_route_commit_launches_once_a_slot(dev, fresh, algo):
+    name = "route_commit_pod" if algo.endswith("pod") else "route_commit_full"
+    for seed0 in (0, 4):            # the call that captures, then one that replays
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _grid(dev, algo, seed0=seed0)
+        assert LAUNCHES[name] == CFG.T and sum(LAUNCHES.values()) == CFG.T
+    assert len(fresh) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_a_replayed_loop_never_syncs_with_the_host(dev, fresh, monkeypatch, algo):
+    _grid(dev, algo)                # captures
+    loop = sim._replay_loop
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(sim, "_replay_loop", strict)
+    with _eager(monkeypatch):
+        want = _grid(dev, algo, seed0=7)
+    _bitwise(_grid(dev, algo, seed0=7), want)
+    assert len(fresh) == 1
+
+
+def _span_counts(run) -> collections.Counter:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    return collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                               if e.name().startswith("sim."))
+
+
+@pytest.mark.gpu
+def test_a_replayed_slot_records_no_step_span(dev, fresh):
+    cfg = sim.SimConfig(T=520, warmup=130, route_mode="batched")   # 2 blocks and 8 slots
+    _grid(dev, "balanced_pandas_pod", cfg=cfg)
+    n = _span_counts(lambda: _grid(dev, "balanced_pandas_pod", 3, cfg))
+    assert not [k for k in n if k.startswith("sim.step.")]
+    assert n["sim.draws"] == 3 and n["sim.draws.stack"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sq", "telemetry", "sequential", "short"])
+def test_the_eager_paths_record_their_step_spans(dev, fresh, case):
+    cfg = CFG if case != "short" else sim.SimConfig(T=40, warmup=10, route_mode="batched")
+    if case == "sequential":
+        cfg = sim.SimConfig(T=300, warmup=75, route_mode="sequential")
+    if case == "telemetry":
+        run = lambda: sim.simulate_with_telemetry("balanced_pandas_pod", CL, PAPER, 0.9, 1,
+                                                  cfg, device=dev)
+    else:
+        algo = "jsq_maxweight_pod" if case == "sq" else "balanced_pandas_pod"
+        run = lambda: _grid(dev, algo, cfg=cfg)
+    n = _span_counts(run)
+    for name in ("sim.draws", "sim.step.service", "sim.step.schedule", "sim.step.route",
+                 "sim.step.accumulate"):
+        assert n[name] == cfg.T, name
+    assert not fresh
