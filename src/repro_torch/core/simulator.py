@@ -26,10 +26,11 @@ servers act against one snapshot, steal conflicts resolved by weight
 priority and queue lengths.  The slot loop is a Python loop over T slots;
 in the batched route mode (the main path) nothing in it reads a device
 value on the host, so the card runs ahead of the loop.  On a CUDA device
-the BP family's batched loop (homogeneous rates, no size law, no
-telemetry, the default draws, at least one draw block) replays the slot
-step as CUDA graphs of 8 slots (``_SlotGraphs``, ``_captures``), captured
-once a set of shapes; the rest steps eagerly.
+the BP family's batched loop (no size law, no telemetry, the default
+draws, at least one draw block) replays the slot step as CUDA graphs of 8
+slots (``_SlotGraphs``, ``_captures``), captured once a set of shapes, on
+the homogeneous path and off it (a scenario's speeds are then computed
+inside the graph); the rest steps eagerly.
 
 Routing modes:
   batched    — the slot's arrival batch routes through ONE launch of the
@@ -84,8 +85,9 @@ slot loop record the host spans of ``repro_torch.spans``: the grid's fixed
 cost a call (``sim.grid.*``), a slot's draws (``sim.draws``, with its
 blocks, stacks and class grids inside) and the phases of every step
 (``sim.step.*``, ``sim.scenario.speed``), the same names in every family.
-A replayed slot records no span: ``sim.draws`` then covers a block's fill
-and stack.  Without a profiler a span site costs one check.
+A replayed slot records no span, its speeds none either: ``sim.draws``
+then covers a block's fill and stack.  Without a profiler a span site
+costs one check.
 """
 from __future__ import annotations
 
@@ -1341,6 +1343,42 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
                             and bool((scen.base_speed == 1.0).all()))
 
 
+# what ``speed_at`` reads of a ScenarioData: the operands a captured step
+# off the homogeneous path holds
+_SPEED_OPERANDS = ("base_speed", "win_start", "win_end", "win_mult")
+
+
+def _slot_speed(scen: ScenarioData, t, rate_vec: torch.Tensor, n_cells: int,
+                bp: bool) -> dict:
+    """The step's speed arguments for slot ``t`` off the homogeneous path:
+    ``speed``, ``speed_at(scen, t)`` ([M, 3] shared by every cell, or a
+    stacked ScenarioData's [S, M, 3] expanded to [n_cells, M, 3], one row
+    a scenario -> one row a cell), and for the BP family ``inv_rate_m``,
+    the slot's inverse rates (``inv_rate_matrix``).  ``t`` is a Python int
+    in the eager loop and a 0-d device tensor in a captured step: nothing
+    is read on the host, and both compute the same bits."""
+    with span("sim.scenario.speed"):
+        speed = speed_at(scen, t)
+        if speed.ndim == 3:
+            S, M = speed.shape[:2]
+            speed = speed[:, None].expand(
+                S, n_cells // S, M, 3).reshape(n_cells, M, 3)
+        if not bp:
+            return {"speed": speed}
+        return {"speed": speed, "inv_rate_m": safe_inv_rates(speed * rate_vec)}
+
+
+def _speed_step(state, sums: RawSums, *, step, t, rate_vec, base_speed,
+                win_start, win_end, win_mult, **kw):
+    """``step`` (the BP family's) of slot ``t`` at that slot's speeds
+    (``_slot_speed``) from the scenario's operands: what a captured slot
+    off the homogeneous path runs, the eager slot's work in its order."""
+    scen = ScenarioData(None, base_speed, win_start, win_end, win_mult,
+                        None, None)
+    return step(state, sums, **kw, **_slot_speed(
+        scen, t, rate_vec, state.Q.shape[0], True))
+
+
 # ---------------------------------------------------------------------------
 # The slot step as CUDA graphs
 # ---------------------------------------------------------------------------
@@ -1355,15 +1393,16 @@ def _captures(device: torch.device, algo: str, route_mode: str, homo: bool,
               sized: bool, telemetry: bool, grid_draws: bool, T: int,
               block: int) -> bool:
     """Does ``_run`` replay the slot step as CUDA graphs (``_SlotGraphs``)?
-    Only for the BP family's batched routing on a CUDA device, on the
-    homogeneous path, without a size law or telemetry, from the default
-    draw source (``GridDraws``, ``block`` slots a fill) and for at least
-    one whole block.  Everything else runs the eager loop: the SQ family
-    and FCFS, sequential routing (it reads each slot's arrival count on the
-    host), speeds, a size law, the collectors, a caller's ``draws``, the
-    CPU, and calls shorter than a block."""
+    Only for the BP family's batched routing on a CUDA device, without a
+    size law or telemetry, from the default draw source (``GridDraws``,
+    ``block`` slots a fill) and for at least one whole block; on the
+    homogeneous path and off it alike (``homo`` False: the graphs also
+    compute each slot's speeds, ``_slot_speed``).  Everything else runs
+    the eager loop: the SQ family and FCFS, sequential routing (it reads
+    each slot's arrival count on the host), a size law, the collectors, a
+    caller's ``draws``, the CPU, and calls shorter than a block."""
     return (device.type == "cuda" and _family(algo) == "bp"
-            and route_mode == "batched" and homo and not sized
+            and route_mode == "batched" and not sized
             and not telemetry and grid_draws and T >= block)
 
 
@@ -1386,6 +1425,10 @@ class _SlotGraphs:
     they advance, the step's constant operands (``fixed``), one draw
     block's buffers ([block, N, ...], written by ``_stack_cells``) and its
     slots' 0/1 weights (``_acc``), so one graph serves every slot of a run.
+    Off the homogeneous path (``timed``) ``fixed`` holds the scenario's
+    speed operands and the rate vector, and a [block] buffer the block's
+    slot indices, from which each captured slot computes its own speeds
+    (``_speed_step``); the homogeneous graphs hold neither.
 
     Chunk k's graph runs the slots at positions k * G .. k * G + G - 1 of
     the block (G = ``_GRAPH_SLOTS``), each chunk on the previous one's
@@ -1399,7 +1442,7 @@ class _SlotGraphs:
     each replay adds its graph's."""
 
     def __init__(self, state, sums: RawSums, fixed: dict, parts, block: int,
-                 cluster: Optional[Cluster]):
+                 cluster: Optional[Cluster], timed: bool):
         self.state = type(state)(*map(torch.empty_like, state))
         self.sums = RawSums(*map(torch.empty_like, sums))
         self.fixed = {k: torch.empty_like(v) for k, v in fixed.items()}
@@ -1407,6 +1450,8 @@ class _SlotGraphs:
             None if x is None else x.new_empty((block, len(parts)) + x.shape[1:])
             for x in parts[0]))
         self.weights = torch.empty((2, block), dtype=_F, device=state.Q.device)
+        self.slots = (torch.empty(block, dtype=torch.int64, device=state.Q.device)
+                      if timed else None)
         self.cluster = cluster          # full BP: derive the class grid
         self.block = block
         self.chunks = [(s, min(_GRAPH_SLOTS, block - s))
@@ -1422,12 +1467,16 @@ class _SlotGraphs:
 
     def _slot(self, i: int) -> dict:
         """The step's arguments of slot i of the block: its draws and
-        weights, views of the held buffers."""
+        weights, and off the homogeneous path its slot index, views of the
+        held buffers."""
         d = type(self.draws)(*(None if x is None else x[i] for x in self.draws))
         if self.cluster is not None:
             d = d._replace(cls=locality_class(self.cluster, d.locals_))
-        return dict(draws=d, measure=self.weights[0, i],
-                    in_half2=self.weights[1, i])
+        kw = dict(draws=d, measure=self.weights[0, i],
+                  in_half2=self.weights[1, i])
+        if self.slots is not None:
+            kw["t"] = self.slots[i]
+        return kw
 
     def capture(self, step) -> None:
         """Capture every chunk of the block, after one eager step on scratch
@@ -1477,14 +1526,16 @@ class _SlotGraphs:
 
 
 def _replay_loop(key: tuple, draw: GridDraws, step, state, sums: RawSums,
-                 fixed: dict, cfg: SimConfig, half2_from: int) -> RawSums:
+                 fixed: dict, cfg: SimConfig, half2_from: int,
+                 timed: bool) -> RawSums:
     """``_run``'s slot loop as replays of the ``_SlotGraphs`` of ``key``
     (captured in the first block of a key's first call): every draw block
     is filled eagerly from the cells' own generators into the held
-    buffers, exactly as ``GridDraws`` fills it, then replayed.  Nothing in
-    the loop reads the device on the host, so the host fills block k + 1
-    while the card runs block k.  Returns the sums, cloned out of the held
-    buffers."""
+    buffers, exactly as ``GridDraws`` fills it, then replayed; ``timed``
+    (off the homogeneous path): the block's slot indices are held too.
+    Nothing in the loop reads the device on the host, so the host fills
+    block k + 1 while the card runs block k.  Returns the sums, cloned out
+    of the held buffers."""
     B = draw.block
     t = torch.arange(-(-cfg.T // B) * B, device=state.Q.device)
     weights = torch.stack([t >= cfg.warmup, t >= half2_from]).to(_F)
@@ -1494,9 +1545,12 @@ def _replay_loop(key: tuple, draw: GridDraws, step, state, sums: RawSums,
             parts = [c._fill(t0) for c in draw.cells]
             if entry is None:
                 entry = _SlotGraphs(state, sums, fixed, parts, B,
-                                    draw.cluster if draw.full_bp else None)
+                                    draw.cluster if draw.full_bp else None,
+                                    timed)
             _stack_cells(parts, entry.draws)
             entry.weights.copy_(weights[:, t0:t0 + B])
+            if timed:
+                entry.slots.copy_(t[t0:t0 + B])
         if t0 == 0:
             entry.load(state, sums, fixed)
         if not entry.graphs:
@@ -1522,12 +1576,14 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
     s the cells s * cells / S .. (s + 1) * cells / S - 1 read.  Unless
     ``homo``, each slot reads its speed from ``speed_at(scen, t)`` (and
     the BP family its [M, 3] or [cells, M, 3] inverse rates), all on the
-    device.  ``tcfg``: collect telemetry.  Where ``_captures`` holds, the
-    loop replays CUDA graphs of the step (``_replay_loop``)."""
+    device (``_slot_speed``).  ``tcfg``: collect telemetry.  Where
+    ``_captures`` holds, on the homogeneous path or off it, the loop
+    replays CUDA graphs of the step (``_replay_loop``), off it with each
+    slot's speeds computed inside the graph; every other slot steps
+    eagerly."""
     half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
     family = _family(algo)
     M = cluster.M
-    stacked = scen is not None and scen.base_speed.ndim == 2
     with span("sim.grid.cells"):
         draw, size = cells()
         rate_vec = rates.as_array(dev)
@@ -1567,21 +1623,22 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
                              tcfg is not None, grid, cfg.T,
                              draw.block if grid else 0)
     if captured:
-        key = (algo, pod, cluster, a_max, n_cells, draw.block, dev)
-        fixed = dict(slot, **({} if pod is None else {"cand_cls": cand_cls}))
+        if homo:
+            fixed = dict(slot)
+        else:
+            fixed = dict(rate_vec=rate_vec,
+                         **{k: getattr(scen, k) for k in _SPEED_OPERANDS})
+            step = functools.partial(_speed_step, step=step)
+        if pod is not None:
+            fixed["cand_cls"] = cand_cls
+        key = (algo, pod, cluster, a_max, n_cells, draw.block, dev, homo,
+               tuple((k, v.shape) for k, v in fixed.items()))
         return _replay_loop(key, draw, step, state, sums, fixed, cfg,
-                            half2_from), None
+                            half2_from, timed=not homo), None
     for t in range(cfg.T):
         if not homo:
-            with span("sim.scenario.speed"):
-                speed = speed_at(scen, t)
-                if stacked:     # one row a scenario -> one row a cell
-                    S = speed.shape[0]
-                    speed = speed[:, None].expand(
-                        S, n_cells // S, M, 3).reshape(n_cells, M, 3)
-                slot["speed"] = speed
-                if family == "bp":      # inv_rate_matrix(rates, speed)
-                    slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
+            slot.update(_slot_speed(scen, t, rate_vec, n_cells,
+                                    family == "bp"))
         with span("sim.draws"):
             draws = draw(t)
         state, sums = step(state, sums, draws, measure=t >= cfg.warmup,

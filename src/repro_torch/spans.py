@@ -21,8 +21,10 @@ USER_SCOPE range gets a copy among the device's operations.
                      sim.draws.fill (one cell's block), sim.draws.stack
                      (a block of every cell), sim.draws.class_grid (full
                      BP's locality classes)
-  slot step          (eager slots only) sim.scenario.speed (a slot's
-                     speeds, off the homogeneous path), sim.step.service,
+  slot step          (eager slots only: a slot that a CUDA graph replays,
+                     on the homogeneous path or off it, records none)
+                     sim.scenario.speed (a slot's speeds, off the
+                     homogeneous path), sim.step.service,
                      sim.step.schedule, sim.step.accumulate,
                      sim.step.telemetry (the collectors)
   routing            (eager slots only) sim.step.route (the arrival

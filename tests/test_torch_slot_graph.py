@@ -2,11 +2,12 @@
 
 On the CPU: the weighted accumulators against their branch form, the
 capture rule condition by condition, the stack into held buffers, and the
-held-buffer loop stepped eagerly.  On the card (marked ``gpu``, skipping
-without a CUDA device): captured runs against the eager loop bit for bit,
-the graphs reused by a second call, the launch counters, no host sync in
-the replayed loop, and the spans of the paths that stay eager.  This file
-imports no JAX.
+held-buffer loop stepped eagerly, on the homogeneous path and off it (a
+scenario's speeds from held operands).  On the card (marked ``gpu``,
+skipping without a CUDA device): captured grids and scenario sweeps
+against the eager loop bit for bit, the graphs reused by a second call,
+the launch counters, no host sync in the replayed loop, and the spans of
+the paths that stay eager.  This file imports no JAX.
 """
 import collections
 import contextlib
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from repro_torch.core import simulator as sim
-from repro_torch.kernels import LAUNCHES, reset_launch_counts
+from repro_torch.kernels import LAUNCHES, MATRIX_LAUNCHES, reset_launch_counts
+from repro_torch.scenarios import realize
 
 PAPER = sim.Rates(0.01, 0.005, 0.002)
 CL = sim.Cluster(500, 10)
@@ -92,7 +94,14 @@ RULE = dict(device=torch.device("cuda"), algo="balanced_pandas_pod",
     ({"algo": "jsq_priority"}, False),
     ({"algo": "fcfs"}, False),
     ({"route_mode": "sequential"}, False),
-    ({"homo": False}, False),
+    ({"homo": False}, True),
+    ({"homo": False, "algo": "balanced_pandas"}, True),
+    ({"homo": False, "sized": True}, False),
+    ({"homo": False, "telemetry": True}, False),
+    ({"homo": False, "route_mode": "sequential"}, False),
+    ({"homo": False, "algo": "jsq_maxweight_pod"}, False),
+    ({"homo": False, "algo": "fcfs"}, False),
+    ({"homo": False, "device": torch.device("cpu")}, False),
     ({"sized": True}, False),
     ({"telemetry": True}, False),
     ({"grid_draws": False}, False),
@@ -138,6 +147,40 @@ def test_the_held_buffer_loop_equals_the_eager_loop_on_the_cpu(monkeypatch, algo
     monkeypatch.setattr(sim._SlotGraphs, "capture", lambda self, step: None)
     _bitwise(run(), want)
     assert len(sim._GRAPHS) == 1
+
+
+SMALL, SMALL_RATES = sim.Cluster(20, 4), sim.Rates(0.1, 0.05, 0.02)
+# one block of 256 slots (with nothing captured, the held state is left as
+# it was loaded, so a call may hold one block only); rack_outage's window
+# opens and closes inside it
+SMALL_CFG = sim.SimConfig(T=256, warmup=70, s_max=16, route_mode="batched")
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+@pytest.mark.parametrize("case", ["sweep", "straggler_wave"])
+def test_the_held_buffer_loop_off_the_homogeneous_path_equals_the_eager_loop_on_the_cpu(
+        monkeypatch, algo, case):
+    """Off the homogeneous path ``_replay_loop`` with nothing captured steps
+    every slot eagerly from the held buffers, its speeds computed from the
+    held scenario operands and slot index (a 0-d tensor): the same sums as
+    the eager loop, for a two-scenario sweep and a one-scenario grid."""
+    if case == "sweep":
+        run = lambda: sim.simulate_sweep(algo, SMALL, SMALL_RATES, (0.45, 0.85), 2,
+                                         SMALL_CFG, scenarios=["slow_rack", "rack_outage"],
+                                         device="cpu")[1]
+        scen, _ = realize("rack_outage", SMALL, SMALL_RATES, SMALL_CFG.T, device="cpu")
+        assert 0 < int(scen.win_start.min()) and int(scen.win_end.max()) < SMALL_CFG.T
+    else:
+        run = lambda: sim.simulate_grid(algo, SMALL, SMALL_RATES, (0.45, 0.85), 2,
+                                        SMALL_CFG, scenario=case, device="cpu")
+    want = run()
+    monkeypatch.setattr(sim, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(sim, "_captures", lambda *a, **k: True)
+    monkeypatch.setattr(sim._SlotGraphs, "capture", lambda self, step: None)
+    _bitwise(run(), want)
+    (entry,) = sim._GRAPHS.values()
+    assert entry.block == 256 and entry.slots is not None
+    assert set(sim._SPEED_OPERANDS) < set(entry.fixed) and "inv_rate_m" not in entry.fixed
 
 
 # ---------------------------------------------------------------------------
@@ -269,3 +312,90 @@ def test_the_eager_paths_record_their_step_spans(dev, fresh, case):
                  "sim.step.accumulate"):
         assert n[name] == cfg.T, name
     assert not fresh
+
+
+# ---------------------------------------------------------------------------
+# Off the homogeneous path, on the card
+# ---------------------------------------------------------------------------
+
+# rack_outage's window (slots 271-331) opens and closes inside the second
+# block; CFG's last block is partial
+SCENS = ["slow_rack", "rack_outage", "straggler_wave"]
+
+
+def _sweep(dev, algo, seed0=0, cfg=CFG, a_max=None):
+    return sim.simulate_sweep(algo, CL, PAPER, LOADS, SEEDS, cfg, seed0=seed0,
+                              scenarios=SCENS, a_max=a_max, device=dev)[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_captured_sweep_equals_the_eager_loop(dev, fresh, monkeypatch, algo):
+    with _eager(monkeypatch):
+        want = _sweep(dev, algo)
+    got = _sweep(dev, algo)
+    assert len(fresh) == 1 and fresh[0].slots is not None
+    assert fresh[0].block < CFG.T < 3 * fresh[0].block
+    _bitwise(got, want)
+    # a second call at new seeds realizes and stacks the scenarios anew and
+    # replays the same graphs
+    with _eager(monkeypatch):
+        want = _sweep(dev, algo, seed0=11)
+    got = _sweep(dev, algo, seed0=11)
+    assert len(fresh) == 1 and len(sim._GRAPHS) == 1
+    _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
+def test_captured_scenario_grid_equals_the_eager_loop(dev, fresh, monkeypatch, algo):
+    """One scenario shared by every cell: [M, 3] speeds, not a stack."""
+    run = lambda seed0: sim.simulate_grid(algo, CL, PAPER, LOADS, SEEDS, CFG, seed0=seed0,
+                                          scenario="straggler_wave", device=dev)
+    for seed0 in (0, 5):
+        with _eager(monkeypatch):
+            want = run(seed0)
+        _bitwise(run(seed0), want)
+    assert len(fresh) == 1 and fresh[0].slots is not None
+
+
+@pytest.mark.gpu
+def test_a_captured_sweep_launches_route_commit_once_a_slot(dev, fresh):
+    for seed0 in (0, 4):            # the call that captures, then one that replays
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _sweep(dev, "balanced_pandas_pod", seed0=seed0)
+        assert LAUNCHES["route_commit_pod"] == CFG.T and sum(LAUNCHES.values()) == CFG.T
+        assert MATRIX_LAUNCHES["route_commit_pod"] == CFG.T
+    assert len(fresh) == 1
+
+
+@pytest.mark.gpu
+def test_a_replayed_sweep_never_syncs_with_the_host(dev, fresh, monkeypatch):
+    _sweep(dev, "balanced_pandas_pod")          # captures
+    loop = sim._replay_loop
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(sim, "_replay_loop", strict)
+    with _eager(monkeypatch):
+        want = _sweep(dev, "balanced_pandas_pod", seed0=7)
+    _bitwise(_sweep(dev, "balanced_pandas_pod", seed0=7), want)
+    assert len(fresh) == 1
+
+
+@pytest.mark.gpu
+def test_a_replayed_scenario_slot_records_no_speed_span(dev, fresh):
+    a_max = sim.sweep_grid(CL, PAPER, CFG, LOADS, SCENS, device=dev)[3]
+    _sweep(dev, "balanced_pandas_pod", a_max=a_max)                 # captures
+    B = fresh[0].block
+    # two blocks, one chunk of 8 replayed and 3 slots stepped eagerly
+    cfg = sim.SimConfig(T=2 * B + 11, warmup=130, route_mode="batched")
+    n = _span_counts(lambda: _sweep(dev, "balanced_pandas_pod", 3, cfg, a_max))
+    assert n["sim.scenario.speed"] == 3 and n["sim.step.service"] == 3
+    assert n["sim.step.route"] == 3 and n["sim.draws"] == 3
+    assert len(fresh) == 1
