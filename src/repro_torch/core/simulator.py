@@ -23,14 +23,17 @@ Within a slot the order is completions -> scheduling -> arrivals, and the
 task count N is read at slot end, so Little's law gives the mean completion
 time.  Scheduling is batched per slot: up to ``SimConfig.s_max`` idle
 servers act against one snapshot, steal conflicts resolved by weight
-priority and queue lengths.  The slot loop is a Python loop over T slots;
-in the batched route mode (the main path) nothing in it reads a device
-value on the host, so the card runs ahead of the loop.  On a CUDA device
-the BP family's batched loop (no size law, no telemetry, the default
-draws, at least one draw block) replays the slot step as CUDA graphs of 8
-slots (``_SlotGraphs``, ``_captures``), captured once a set of shapes, on
-the homogeneous path and off it (a scenario's speeds are then computed
-inside the graph); the rest steps eagerly.
+priority and queue lengths.  The slot loop (``_slot_loop``) is one
+Python loop over the run's draw blocks, on every device and for every
+family: it fills a block, then runs the block's slots; in the batched
+route mode (the main path) nothing in it reads a device value on the
+host, so the card runs ahead of the loop.  A slot runs in one of two
+ways.  On a CUDA device the BP family's batched loop (no size law, no
+telemetry, the default draws, at least one draw block) replays the slot
+step as CUDA graphs of 8 slots (``_SlotGraphs``, ``_captures``),
+captured once a set of shapes, on the homogeneous path and off it (a
+scenario's speeds are then computed inside the graph); every other slot
+steps eagerly.  Both get the same operands and the same slot views.
 
 Routing modes:
   batched    — the slot's arrival batch routes through ONE launch of the
@@ -82,12 +85,14 @@ cell's unbatched state (the level-2 parity tests feed them so).
 
 Tracing.  Under a recording ``torch.profiler`` the entry points and the
 slot loop record the host spans of ``repro_torch.spans``: the grid's fixed
-cost a call (``sim.grid.*``), a slot's draws (``sim.draws``, with its
-blocks, stacks and class grids inside) and the phases of every step
+cost a call (``sim.grid.*``), the draws (``sim.draws``: a slot's where
+the whole loop steps eagerly, a block's fill where it replays CUDA graphs;
+the cells' ``sim.draws.fill``, the block's ``sim.draws.stack`` and an
+eager slot's ``sim.draws.class_grid`` for full BP inside it, except in a
+replayed block's eager tail) and the phases of every eager step
 (``sim.step.*``, ``sim.scenario.speed``), the same names in every family.
-A replayed slot records no span, its speeds none either: ``sim.draws``
-then covers a block's fill and stack.  Without a profiler a span site
-costs one check.
+A replayed slot records no span, its speeds and class grid none either.
+Without a profiler a span site costs one check.
 """
 from __future__ import annotations
 
@@ -377,6 +382,18 @@ def draw_durations(gen: torch.Generator, cfg: SimConfig, p: torch.Tensor,
     raise ValueError(f"unknown service distribution {cfg.service_dist!r}")
 
 
+def _slot_view(buf, i: int, cluster: Optional[Cluster] = None):
+    """Slot i of a filled draw block ``buf`` (every field [n, ...]): each
+    field's row i.  With ``cluster`` (full BP), ``cls`` is derived from the
+    slot's replica triples, the one place the port derives it: BP's
+    [..., a_max, M] class grid is not drawn."""
+    d = type(buf)(*(None if x is None else x[i] for x in buf))
+    if cluster is None:
+        return d
+    with span("sim.draws.class_grid"):
+        return d._replace(cls=locality_class(cluster, d.locals_))
+
+
 class TorchDraws:
     """Default draw source of one cell: ``draws(t)`` is slot t's draws for
     ``family`` ("bp", "sq" or "fcfs"), in the reference's distributions,
@@ -390,9 +407,8 @@ class TorchDraws:
     cell's shapes only, never on how many cells a grid runs, so that a grid
     cell draws exactly what its looped run draws.  The full-BP tie
     permutation is the argsort of iid uniforms: a uniform permutation.
-    Bounded integers are scaled uniforms (``uniform_int``).  BP's [a_max,
-    M] class grid is not drawn: ``draws(t)`` derives it from the slot's
-    replica triples, and ``GridDraws`` for many slots and cells at once.
+    Bounded integers are scaled uniforms (``uniform_int``).  Full BP's
+    class grid comes from ``_slot_view``.
 
     ``scen`` (a ScenarioData on the same device, or None for ``uniform``)
     sets the placement law of the replica triples, each slot drawing from
@@ -492,52 +508,51 @@ class TorchDraws:
     def __call__(self, t: int):
         if self._buf is None or not self._t0 <= t < self._t0 + self.block:
             self._t0, self._buf = t, self._fill(t)
-        i = t - self._t0
-        d = type(self._buf)(*(None if x is None else x[i] for x in self._buf))
-        if self.family == "bp" and self.pod is None:
-            with span("sim.draws.class_grid"):
-                d = d._replace(cls=locality_class(self.cluster, d.locals_))
-        return d
+        return _slot_view(self._buf, t - self._t0,
+                          self.cluster if self.family == "bp"
+                          and self.pod is None else None)
 
 
 class GridDraws:
-    """Draw source of N cells: slot t's draws of every cell, each field
-    with a leading [N] axis.  Cell i draws from ``cells[i]`` (a
-    ``TorchDraws`` with its own generator, lam and scenario) in blocks of
-    the same slots, and the blocks are stacked once a block.  Full BP's
-    class grid is derived from the stacked replica triples for as many
-    slots at once as a grid-wide budget of ``_CLS_ELEMS`` elements allows
-    (one slot at the least), so a slot of a large grid costs a fraction of
-    one ``locality_class`` and a one-cell grid derives a block at once.
-    Where only some cells draw the size law, the others get draws of 0,
-    whose size multiplier is exactly 1."""
-
-    _CLS_ELEMS = 1 << 22
+    """The draw source of N cells, a block of slots at a time: ``fill(t0)``
+    is slots t0 .. t0 + block - 1 of every cell, each field [n, N, ...],
+    and ``view(buf, i)`` slot i of it (``_slot_view``).  Cell i draws from
+    ``cells[i]`` (a ``TorchDraws`` with its own generator, lam and
+    scenario) in blocks of the same slots, stacked once a block.  Where
+    only some cells draw the size law, the others get draws of 0, whose
+    size multiplier is exactly 1."""
 
     def __init__(self, cells: list):
         first = cells[0]
         if any(c.block != first.block for c in cells):
             raise ValueError("the cells of a grid draw in blocks of one size")
-        self.cells, self.block, self.cluster = cells, first.block, first.cluster
-        self.full_bp = first.family == "bp" and first.pod is None
-        self.cls_block = max(1, min(self.block, self._CLS_ELEMS // (
-            len(cells) * first.a_max * first.cluster.M)))
-        self._t0 = self._buf = self._c0 = self._cls = None
+        self.cells, self.block = cells, first.block
+        self.sized = any(c.sized for c in cells)
+        self._cluster = (first.cluster if first.family == "bp"
+                         and first.pod is None else None)
 
-    def __call__(self, t: int):
-        if self._buf is None or not self._t0 <= t < self._t0 + self.block:
-            self._t0, self._buf = t, _stack_cells([c._fill(t) for c in self.cells])
-            self._cls = None
-        i = t - self._t0
-        d = type(self._buf)(*(None if x is None else x[i] for x in self._buf))
-        if self.full_bp:
-            if self._cls is None or not self._c0 <= i < self._c0 + self.cls_block:
-                self._c0 = i
-                with span("sim.draws.class_grid"):
-                    self._cls = locality_class(
-                        self.cluster, self._buf.locals_[i:i + self.cls_block])
-            d = d._replace(cls=self._cls[i - self._c0])
-        return d
+    def fill(self, t0: int, out=None):
+        """The block from slot t0; into ``out``'s buffers when given
+        (``_stack_cells``)."""
+        return _stack_cells([c._fill(t0) for c in self.cells], out)
+
+    def view(self, buf, i: int):
+        return _slot_view(buf, i, self._cluster)
+
+
+class _CallerDraws:
+    """A caller's per-slot draw source (``simulate(draws=...)``) as a draw
+    source of one cell in blocks of one slot; its draws carry their own
+    class grid."""
+
+    block = 1
+    view = staticmethod(_slot_view)
+
+    def __init__(self, draws: DrawSource):
+        self.draws = draws
+
+    def fill(self, t0: int, out=None):
+        return _stack_cells([_lift(self.draws(t0))], out)
 
 
 def _stack_cells(parts, out=None):
@@ -1343,40 +1358,32 @@ def _rates_homogeneous(scen: Optional[ScenarioData]) -> bool:
                             and bool((scen.base_speed == 1.0).all()))
 
 
-# what ``speed_at`` reads of a ScenarioData: the operands a captured step
-# off the homogeneous path holds
+# what ``speed_at`` reads of a ScenarioData: the loop's operands off the
+# homogeneous path, with the rate vector
 _SPEED_OPERANDS = ("base_speed", "win_start", "win_end", "win_mult")
 
 
-def _slot_speed(scen: ScenarioData, t, rate_vec: torch.Tensor, n_cells: int,
-                bp: bool) -> dict:
-    """The step's speed arguments for slot ``t`` off the homogeneous path:
-    ``speed``, ``speed_at(scen, t)`` ([M, 3] shared by every cell, or a
-    stacked ScenarioData's [S, M, 3] expanded to [n_cells, M, 3], one row
-    a scenario -> one row a cell), and for the BP family ``inv_rate_m``,
-    the slot's inverse rates (``inv_rate_matrix``).  ``t`` is a Python int
-    in the eager loop and a 0-d device tensor in a captured step: nothing
-    is read on the host, and both compute the same bits."""
+def _speed_step(state, sums: RawSums, *, step, bp: bool, t, rate_vec,
+                base_speed, win_start, win_end, win_mult, **kw):
+    """``step`` of slot ``t`` off the homogeneous path, at that slot's
+    speeds from the scenario's operands: ``speed``, ``speed_at`` ([M, 3]
+    shared by every cell, or a stacked scenario's [S, M, 3] expanded to
+    [cells, M, 3], one row a scenario -> one row a cell), and for the BP
+    family (``bp``) ``inv_rate_m``, the slot's inverse rates.  ``t`` is a
+    Python int in an eager step and a 0-d device tensor in a captured one:
+    nothing is read on the host, and both compute the same bits."""
     with span("sim.scenario.speed"):
+        scen = ScenarioData(None, base_speed, win_start, win_end, win_mult,
+                            None, None)
         speed = speed_at(scen, t)
         if speed.ndim == 3:
             S, M = speed.shape[:2]
-            speed = speed[:, None].expand(
-                S, n_cells // S, M, 3).reshape(n_cells, M, 3)
-        if not bp:
-            return {"speed": speed}
-        return {"speed": speed, "inv_rate_m": safe_inv_rates(speed * rate_vec)}
-
-
-def _speed_step(state, sums: RawSums, *, step, t, rate_vec, base_speed,
-                win_start, win_end, win_mult, **kw):
-    """``step`` (the BP family's) of slot ``t`` at that slot's speeds
-    (``_slot_speed``) from the scenario's operands: what a captured slot
-    off the homogeneous path runs, the eager slot's work in its order."""
-    scen = ScenarioData(None, base_speed, win_start, win_end, win_mult,
-                        None, None)
-    return step(state, sums, **kw, **_slot_speed(
-        scen, t, rate_vec, state.Q.shape[0], True))
+            n = state.busy.shape[0]
+            speed = speed[:, None].expand(S, n // S, M, 3).reshape(n, M, 3)
+        slot = {"speed": speed}
+        if bp:
+            slot["inv_rate_m"] = safe_inv_rates(speed * rate_vec)
+    return step(state, sums, t=t, **kw, **slot)
 
 
 # ---------------------------------------------------------------------------
@@ -1389,16 +1396,15 @@ _GRAPH_KEYS = 4         # sets of shapes whose graphs are kept (each holds a
 _GRAPHS: "collections.OrderedDict[tuple, _SlotGraphs]" = collections.OrderedDict()
 
 
-def _captures(device: torch.device, algo: str, route_mode: str, homo: bool,
-              sized: bool, telemetry: bool, grid_draws: bool, T: int,
-              block: int) -> bool:
-    """Does ``_run`` replay the slot step as CUDA graphs (``_SlotGraphs``)?
-    Only for the BP family's batched routing on a CUDA device, without a
-    size law or telemetry, from the default draw source (``GridDraws``,
-    ``block`` slots a fill) and for at least one whole block; on the
-    homogeneous path and off it alike (``homo`` False: the graphs also
-    compute each slot's speeds, ``_slot_speed``).  Everything else runs
-    the eager loop: the SQ family and FCFS, sequential routing (it reads
+def _captures(device: torch.device, algo: str, route_mode: str, sized: bool,
+              telemetry: bool, grid_draws: bool, T: int, block: int) -> bool:
+    """Does the slot loop replay the slot step as CUDA graphs
+    (``_SlotGraphs``)?  Only for the BP family's batched routing on a CUDA
+    device, without a size law or telemetry, from the default draw source
+    (``GridDraws``, ``block`` slots a fill) and for at least one whole
+    block; on the homogeneous path and off it alike (off it the graphs
+    also compute each slot's speeds, ``_speed_step``).  Everything else
+    steps eagerly: the SQ family and FCFS, sequential routing (it reads
     each slot's arrival count on the host), a size law, the collectors, a
     caller's ``draws``, the CPU, and calls shorter than a block."""
     return (device.type == "cuda" and _family(algo) == "bp"
@@ -1420,40 +1426,40 @@ def _add_launches(counts: tuple) -> None:
 
 class _SlotGraphs:
     """The BP family's batched slot step captured as CUDA graphs, for one
-    set of shapes (``_run``'s key).  The graphs read and write only tensors
-    held here, refilled for every call by ``copy_``: the state and sums
-    they advance, the step's constant operands (``fixed``), one draw
-    block's buffers ([block, N, ...], written by ``_stack_cells``) and its
-    slots' 0/1 weights (``_acc``), so one graph serves every slot of a run.
-    Off the homogeneous path (``timed``) ``fixed`` holds the scenario's
-    speed operands and the rate vector, and a [block] buffer the block's
-    slot indices, from which each captured slot computes its own speeds
-    (``_speed_step``); the homogeneous graphs hold neither.
+    set of shapes (the slot loop's key).  The graphs read and write only
+    tensors held here, refilled for every call by ``copy_``: the state and
+    sums they advance, the loop's operands (``fixed``), one draw block's
+    buffers ([block, N, ...], the draw source's ``fill`` writes them), the
+    block's slot indices and its slots' 0/1 weights (``_acc``), so one
+    graph serves every slot of a run.  Off the homogeneous path ``fixed``
+    holds the scenario's speed operands and each captured slot computes
+    its speeds from them and its slot index (``_speed_step``); nothing in
+    a homogeneous graph reads the index.
 
     Chunk k's graph runs the slots at positions k * G .. k * G + G - 1 of
     the block (G = ``_GRAPH_SLOTS``), each chunk on the previous one's
     outputs; the block's last chunk copies its own back into the held state
     and sums, which the next block's first chunk reads.  The graphs share
     one memory pool and always replay in the order they were captured: a
-    partial block replays those of its chunks that it holds whole, and
-    steps eagerly through the slots left.  Full BP's class grid is derived
-    inside the graph from the held replica triples.  ``LAUNCHES`` counts
-    what a replay holds: launches made while capturing are taken back, and
-    each replay adds its graph's."""
+    partial block replays those of its chunks that it holds whole.  A
+    slot's draws are the draw source's ``view`` of the held buffers (full
+    BP's class grid derived inside the graph).  ``LAUNCHES`` counts what a
+    replay holds: launches made while capturing are taken back, and each
+    replay adds its graph's."""
 
-    def __init__(self, state, sums: RawSums, fixed: dict, parts, block: int,
-                 cluster: Optional[Cluster], timed: bool):
+    def __init__(self, state, sums: RawSums, fixed: dict, draws, view):
+        dev = state.busy.device
         self.state = type(state)(*map(torch.empty_like, state))
         self.sums = RawSums(*map(torch.empty_like, sums))
         self.fixed = {k: torch.empty_like(v) for k, v in fixed.items()}
-        self.draws = type(parts[0])(*(
-            None if x is None else x.new_empty((block, len(parts)) + x.shape[1:])
-            for x in parts[0]))
-        self.weights = torch.empty((2, block), dtype=_F, device=state.Q.device)
-        self.slots = (torch.empty(block, dtype=torch.int64, device=state.Q.device)
-                      if timed else None)
-        self.cluster = cluster          # full BP: derive the class grid
-        self.block = block
+        # held copies of the first block's draws, a whole block (T >= block)
+        self.draws = type(draws)(*(
+            None if x is None else x.clone(memory_format=torch.contiguous_format)
+            for x in draws))
+        self.block = block = draws.raw.shape[0]
+        self.weights = torch.empty((2, block), dtype=_F, device=dev)
+        self.slots = torch.empty(block, dtype=torch.int64, device=dev)
+        self.view = view
         self.chunks = [(s, min(_GRAPH_SLOTS, block - s))
                        for s in range(0, block, _GRAPH_SLOTS)]
         self.graphs = []    # (graph, launches it holds, state and sums it leaves)
@@ -1466,17 +1472,10 @@ class _SlotGraphs:
             self.fixed[k].copy_(v)
 
     def _slot(self, i: int) -> dict:
-        """The step's arguments of slot i of the block: its draws and
-        weights, and off the homogeneous path its slot index, views of the
-        held buffers."""
-        d = type(self.draws)(*(None if x is None else x[i] for x in self.draws))
-        if self.cluster is not None:
-            d = d._replace(cls=locality_class(self.cluster, d.locals_))
-        kw = dict(draws=d, measure=self.weights[0, i],
-                  in_half2=self.weights[1, i])
-        if self.slots is not None:
-            kw["t"] = self.slots[i]
-        return kw
+        """The step's arguments of slot i of the block, views of the held
+        buffers: its draws, slot index and weights."""
+        return dict(draws=self.view(self.draws, i), t=self.slots[i],
+                    measure=self.weights[0, i], in_half2=self.weights[1, i])
 
     def capture(self, step) -> None:
         """Capture every chunk of the block, after one eager step on scratch
@@ -1508,10 +1507,10 @@ class _SlotGraphs:
         reset_launch_counts()
         _add_launches(saved)
 
-    def replay(self, n: int, step):
-        """Run the block's first n slots from the held state: every chunk
-        that lies inside them by replay, the slots after it eagerly.
-        Returns the state and sums they leave."""
+    def replay(self, n: int):
+        """Replay every chunk that lies inside the block's first n slots,
+        from the held state.  Returns the state and sums they leave and the
+        number of slots they ran."""
         state, sums, done = self.state, self.sums, 0
         for (s, m), (graph, launches, st, sm) in zip(self.chunks, self.graphs):
             if s + m > n:
@@ -1519,47 +1518,62 @@ class _SlotGraphs:
             graph.replay()
             _add_launches(launches)
             state, sums, done = st, sm, s + m
-        step = functools.partial(step, **self.fixed)
-        for i in range(done, n):
-            state, sums = step(state, sums, **self._slot(i))
-        return state, sums
+        return state, sums, done
 
 
-def _replay_loop(key: tuple, draw: GridDraws, step, state, sums: RawSums,
-                 fixed: dict, cfg: SimConfig, half2_from: int,
-                 timed: bool) -> RawSums:
-    """``_run``'s slot loop as replays of the ``_SlotGraphs`` of ``key``
-    (captured in the first block of a key's first call): every draw block
-    is filled eagerly from the cells' own generators into the held
-    buffers, exactly as ``GridDraws`` fills it, then replayed; ``timed``
-    (off the homogeneous path): the block's slot indices are held too.
-    Nothing in the loop reads the device on the host, so the host fills
-    block k + 1 while the card runs block k.  Returns the sums, cloned out
-    of the held buffers."""
-    B = draw.block
-    t = torch.arange(-(-cfg.T // B) * B, device=state.Q.device)
-    weights = torch.stack([t >= cfg.warmup, t >= half2_from]).to(_F)
-    entry = _GRAPHS.pop(key, None)
+def _slot_loop(draw, step, state, sums: RawSums, fixed: dict, cfg: SimConfig,
+               key: Optional[tuple] = None) -> RawSums:
+    """The T-slot loop, a draw block at a time: each block is filled
+    (``draw.fill``), then its slots run.  With ``key`` (``_captures``
+    holds) the fill is one ``sim.draws`` span, the block's whole chunks
+    replay the ``_SlotGraphs`` of ``key`` (captured in the first block of a
+    key's first call) and the slots after them step eagerly; without it
+    every slot steps eagerly, its draws in a ``sim.draws`` span of its own
+    (the block's fill inside its first slot's).  An eager step gets the
+    Python slot index and bool weights, a replayed one the held index and
+    weights; both get the operands ``fixed`` and the draw source's
+    ``view`` of the block.
+    Nothing in a replayed loop reads the device on the host, so the host
+    fills block k + 1 while the card runs block k.  Returns the sums."""
+    B, half2_from = draw.block, cfg.warmup + (cfg.T - cfg.warmup) // 2
+    entry = None
+    if key is not None:
+        slots = torch.arange(-(-cfg.T // B) * B, device=state.busy.device)
+        weights = torch.stack([slots >= cfg.warmup,
+                               slots >= half2_from]).to(_F)
+        entry = _GRAPHS.pop(key, None)
     for t0 in range(0, cfg.T, B):
-        with span("sim.draws"):
-            parts = [c._fill(t0) for c in draw.cells]
-            if entry is None:
-                entry = _SlotGraphs(state, sums, fixed, parts, B,
-                                    draw.cluster if draw.full_bp else None,
-                                    timed)
-            _stack_cells(parts, entry.draws)
-            entry.weights.copy_(weights[:, t0:t0 + B])
-            if timed:
-                entry.slots.copy_(t[t0:t0 + B])
-        if t0 == 0:
-            entry.load(state, sums, fixed)
-        if not entry.graphs:
-            entry.capture(step)
-        state, sums = entry.replay(min(B, cfg.T - t0), step)
+        n, done = min(B, cfg.T - t0), 0
+        if key is not None:
+            with span("sim.draws"):
+                buf = draw.fill(t0, None if entry is None else entry.draws)
+                if entry is None:
+                    entry = _SlotGraphs(state, sums, fixed, buf, draw.view)
+                entry.weights.copy_(weights[:, t0:t0 + B])
+                entry.slots.copy_(slots[t0:t0 + B])
+            if t0 == 0:
+                entry.load(state, sums, fixed)
+            if not entry.graphs:
+                entry.capture(step)
+            state, sums, done = entry.replay(n)
+        for i in range(done, n):
+            t = t0 + i
+            if key is None:
+                with span("sim.draws"):
+                    if i == 0:
+                        buf = draw.fill(t0, None)
+                    d = draw.view(buf, i)
+            else:
+                d = draw.view(buf, i)
+            state, sums = step(state, sums, draws=d, t=t,
+                               measure=t >= cfg.warmup,
+                               in_half2=t >= half2_from, **fixed)
+    if key is None:
+        return sums
     _GRAPHS[key] = entry
     while len(_GRAPHS) > _GRAPH_KEYS:
         _GRAPHS.popitem(last=False)
-    return RawSums(*(x.clone() for x in sums))
+    return RawSums(*(x.clone() for x in sums))      # out of the held buffers
 
 
 def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
@@ -1567,37 +1581,33 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
          pod: Optional[PodSpec], a_max: int, n_cells: int,
          scen: Optional[ScenarioData] = None, homo: bool = True,
          tcfg: Optional[tlm.TelemetryConfig] = None):
-    """The T-slot loop over ``n_cells`` cells; returns (raw accumulators,
-    telemetry or None), each leaf with a leading [cells].  ``cells()``
-    gives (draw, size): ``draw(t)`` is slot t's draws of every cell, and
-    ``size`` the cells' size law (``_task_work``); it runs with the rest
-    of the loop's set-up, in the span ``sim.grid.cells``.  ``scen`` is one
-    ScenarioData all cells share, or a stacked one of S scenarios whose row
-    s the cells s * cells / S .. (s + 1) * cells / S - 1 read.  Unless
-    ``homo``, each slot reads its speed from ``speed_at(scen, t)`` (and
-    the BP family its [M, 3] or [cells, M, 3] inverse rates), all on the
-    device (``_slot_speed``).  ``tcfg``: collect telemetry.  Where
-    ``_captures`` holds, on the homogeneous path or off it, the loop
-    replays CUDA graphs of the step (``_replay_loop``), off it with each
-    slot's speeds computed inside the graph; every other slot steps
-    eagerly."""
-    half2_from = cfg.warmup + (cfg.T - cfg.warmup) // 2
+    """The T-slot loop over ``n_cells`` cells (``_slot_loop``); returns
+    (raw accumulators, telemetry or None), each leaf with a leading
+    [cells].  ``cells()`` gives (draw, size): ``draw`` a draw source
+    (``GridDraws``, or ``_CallerDraws``), ``size`` the cells' size law
+    (``_task_work``); it runs with the rest of the loop's set-up, in the
+    span ``sim.grid.cells``.  ``scen`` is one ScenarioData all cells share,
+    or a stacked one of S scenarios whose row s the cells s * cells / S ..
+    (s + 1) * cells / S - 1 read.  The loop's operands are one dict for
+    every step: on the homogeneous path (``homo``) the BP family's [3]
+    inverse rates; off it the scenario's speed operands and the rate
+    vector, from which each slot computes its speeds (``_speed_step``).
+    ``tcfg``: collect telemetry."""
     family = _family(algo)
     M = cluster.M
     with span("sim.grid.cells"):
         draw, size = cells()
         rate_vec = rates.as_array(dev)
         kw = dict(cluster=cluster, cfg=cfg, a_max=a_max, scen=size)
+        fixed = {}
         if family == "bp":
-            cand_cls = None
             if pod is not None:
-                cand_cls = pod_candidate_classes(
+                fixed["cand_cls"] = pod_candidate_classes(
                     cluster.n_replicas, pod, dev).expand(a_max, -1).contiguous()
             state = BPState.zero(M, dev, n_cells)
             step = functools.partial(
                 _bp_step, pod=pod,
-                class_tiebreak=(algo != "balanced_pandas_randomtie"),
-                cand_cls=cand_cls, **kw)
+                class_tiebreak=(algo != "balanced_pandas_randomtie"), **kw)
         else:
             consts = step_consts(cluster, rates, pod, a_max, dev)
             if family == "sq":
@@ -1615,35 +1625,21 @@ def _run(cells: Callable[[], tuple], dev: torch.device, *, algo: str,
             tele = tlm.zero_telemetry(tcfg, M, family, device=dev,
                                       cells=n_cells)
             step = functools.partial(step, tele=tele, tcfg=tcfg)
-        slot = ({"inv_rate_m": safe_inv_rates(rate_vec)} if family == "bp"
-                else {})
-        grid = isinstance(draw, GridDraws)
-        captured = _captures(dev, algo, cfg.route_mode, homo,
-                             grid and any(c.sized for c in draw.cells),
-                             tcfg is not None, grid, cfg.T,
-                             draw.block if grid else 0)
-    if captured:
         if homo:
-            fixed = dict(slot)
+            if family == "bp":
+                fixed["inv_rate_m"] = safe_inv_rates(rate_vec)
         else:
-            fixed = dict(rate_vec=rate_vec,
+            fixed.update(rate_vec=rate_vec,
                          **{k: getattr(scen, k) for k in _SPEED_OPERANDS})
-            step = functools.partial(_speed_step, step=step)
-        if pod is not None:
-            fixed["cand_cls"] = cand_cls
-        key = (algo, pod, cluster, a_max, n_cells, draw.block, dev, homo,
-               tuple((k, v.shape) for k, v in fixed.items()))
-        return _replay_loop(key, draw, step, state, sums, fixed, cfg,
-                            half2_from, timed=not homo), None
-    for t in range(cfg.T):
-        if not homo:
-            slot.update(_slot_speed(scen, t, rate_vec, n_cells,
-                                    family == "bp"))
-        with span("sim.draws"):
-            draws = draw(t)
-        state, sums = step(state, sums, draws, measure=t >= cfg.warmup,
-                           in_half2=t >= half2_from, t=t, **slot)
-    return sums, tele
+            step = functools.partial(_speed_step, step=step,
+                                     bp=family == "bp")
+        grid = isinstance(draw, GridDraws)
+        key = None
+        if _captures(dev, algo, cfg.route_mode, grid and draw.sized,
+                     tcfg is not None, grid, cfg.T, draw.block):
+            key = (algo, pod, cluster, a_max, n_cells, draw.block, dev,
+                   tuple((k, v.shape) for k, v in fixed.items()))
+    return _slot_loop(draw, step, state, sums, fixed, cfg, key), tele
 
 
 def _cell_draws(gen: torch.Generator, cluster: Cluster, rates: Rates,
@@ -1715,7 +1711,7 @@ def _simulate(algo, cluster, rates, load, key, cfg, pod, scenario, pad,
 
     def cells():
         if draws is not None:
-            return (lambda t: _lift(draws(t))), scen
+            return _CallerDraws(draws), scen
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(key))
         return GridDraws([_cell_draws(gen, cluster, rates, cfg, pod, a_max,

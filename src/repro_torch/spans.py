@@ -16,8 +16,10 @@ USER_SCOPE range gets a copy among the device's operations.
 
   grid entry point   sim.grid.realize, sim.grid.cells, sim.grid.summarize
                      (once a call: the fixed cost around the slot loop)
-  draws              sim.draws (a slot's ``draw(t)``, or a block's fill
-                     where the step replays as CUDA graphs), inside it
+  draws              sim.draws (a slot's view of its draw block, the
+                     block's fill in its first slot's, where the whole
+                     loop steps eagerly; a block's fill where the step
+                     replays as CUDA graphs), inside it
                      sim.draws.fill (one cell's block), sim.draws.stack
                      (a block of every cell), sim.draws.class_grid (full
                      BP's locality classes)

@@ -1,13 +1,15 @@
 """The BP family's slot step replayed as CUDA graphs (``simulator._SlotGraphs``).
 
 On the CPU: the weighted accumulators against their branch form, the
-capture rule condition by condition, the stack into held buffers, and the
-held-buffer loop stepped eagerly, on the homogeneous path and off it (a
-scenario's speeds from held operands).  On the card (marked ``gpu``,
-skipping without a CUDA device): captured grids and scenario sweeps
-against the eager loop bit for bit, the graphs reused by a second call,
-the launch counters, no host sync in the replayed loop, and the spans of
-the paths that stay eager.  This file imports no JAX.
+capture rule condition by condition, the stack into held buffers, the
+draw sources' slot views (full BP's class grid derived in one place), and
+the one slot loop stepped eagerly over more than one draw block, on the
+homogeneous path and off it, against the looped runs; a caller's draw
+source as blocks of one slot.  On the card (marked ``gpu``, skipping
+without a CUDA device): captured grids and scenario sweeps against the
+eager loop bit for bit, the graphs reused by a second call, the launch
+counters, no host sync in the replayed loop, and the spans of the paths
+that stay eager.  This file imports no JAX.
 """
 import collections
 import contextlib
@@ -16,8 +18,9 @@ import pytest
 import torch
 
 from repro_torch.core import simulator as sim
+from repro_torch.core.cluster import locality_class
 from repro_torch.kernels import LAUNCHES, MATRIX_LAUNCHES, reset_launch_counts
-from repro_torch.scenarios import realize
+from repro_torch.scenarios import build, realize
 
 PAPER = sim.Rates(0.01, 0.005, 0.002)
 CL = sim.Cluster(500, 10)
@@ -79,7 +82,7 @@ def test_weighted_acc_equals_the_branch_form(measure, in_half2, weights):
 
 
 RULE = dict(device=torch.device("cuda"), algo="balanced_pandas_pod",
-            route_mode="batched", homo=True, sized=False, telemetry=False,
+            route_mode="batched", sized=False, telemetry=False,
             grid_draws=True, T=5000, block=256)
 
 
@@ -93,19 +96,15 @@ RULE = dict(device=torch.device("cuda"), algo="balanced_pandas_pod",
     ({"algo": "jsq_maxweight_pod"}, False),
     ({"algo": "jsq_priority"}, False),
     ({"algo": "fcfs"}, False),
+    ({"algo": "jsq_maxweight"}, False),
     ({"route_mode": "sequential"}, False),
-    ({"homo": False}, True),
-    ({"homo": False, "algo": "balanced_pandas"}, True),
-    ({"homo": False, "sized": True}, False),
-    ({"homo": False, "telemetry": True}, False),
-    ({"homo": False, "route_mode": "sequential"}, False),
-    ({"homo": False, "algo": "jsq_maxweight_pod"}, False),
-    ({"homo": False, "algo": "fcfs"}, False),
-    ({"homo": False, "device": torch.device("cpu")}, False),
     ({"sized": True}, False),
     ({"telemetry": True}, False),
     ({"grid_draws": False}, False),
     ({"T": 255}, False),
+    # BP-Pod's draw block at M=5000: a call of one block, and one short of it
+    ({"T": 9, "block": 9}, True),
+    ({"T": 8, "block": 9}, False),
 ])
 def test_capture_rule(change, captured):
     assert sim._captures(**{**RULE, **change}) is captured
@@ -133,54 +132,110 @@ def test_stack_into_held_buffers(cells, n):
         assert (h[n:] == 1).all(), name        # rows past the block's slots kept
 
 
-@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
-def test_the_held_buffer_loop_equals_the_eager_loop_on_the_cpu(monkeypatch, algo):
-    """``_replay_loop`` with nothing captured steps one whole block eagerly
-    from the held buffers and weights (warmup and the half-way point inside
-    it): the same sums as the eager loop."""
-    cl, rates = sim.Cluster(20, 4), sim.Rates(0.1, 0.05, 0.02)
-    cfg = sim.SimConfig(T=256, warmup=70, s_max=16, route_mode="batched")
-    run = lambda: sim.simulate_grid(algo, cl, rates, (0.45, 0.85), 2, cfg, device="cpu")
-    want = run()
-    monkeypatch.setattr(sim, "_GRAPHS", collections.OrderedDict())
-    monkeypatch.setattr(sim, "_captures", lambda *a, **k: True)
-    monkeypatch.setattr(sim._SlotGraphs, "capture", lambda self, step: None)
-    _bitwise(run(), want)
-    assert len(sim._GRAPHS) == 1
-
-
 SMALL, SMALL_RATES = sim.Cluster(20, 4), sim.Rates(0.1, 0.05, 0.02)
-# one block of 256 slots (with nothing captured, the held state is left as
-# it was loaded, so a call may hold one block only); rack_outage's window
-# opens and closes inside it
-SMALL_CFG = sim.SimConfig(T=256, warmup=70, s_max=16, route_mode="batched")
+# two draw blocks of 256 slots, the last partial (84 slots); straggler_wave's
+# last window (slots 221-289) spans the blocks' boundary
+SMALL_CFG = sim.SimConfig(T=340, warmup=85, s_max=16, route_mode="batched")
+SMALL_LOADS = (0.45, 0.85)
 
 
-@pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
-@pytest.mark.parametrize("case", ["sweep", "straggler_wave"])
-def test_the_held_buffer_loop_off_the_homogeneous_path_equals_the_eager_loop_on_the_cpu(
-        monkeypatch, algo, case):
-    """Off the homogeneous path ``_replay_loop`` with nothing captured steps
-    every slot eagerly from the held buffers, its speeds computed from the
-    held scenario operands and slot index (a 0-d tensor): the same sums as
-    the eager loop, for a two-scenario sweep and a one-scenario grid."""
-    if case == "sweep":
-        run = lambda: sim.simulate_sweep(algo, SMALL, SMALL_RATES, (0.45, 0.85), 2,
-                                         SMALL_CFG, scenarios=["slow_rack", "rack_outage"],
-                                         device="cpu")[1]
-        scen, _ = realize("rack_outage", SMALL, SMALL_RATES, SMALL_CFG.T, device="cpu")
-        assert 0 < int(scen.win_start.min()) and int(scen.win_end.max()) < SMALL_CFG.T
-    else:
-        run = lambda: sim.simulate_grid(algo, SMALL, SMALL_RATES, (0.45, 0.85), 2,
-                                        SMALL_CFG, scenario=case, device="cpu")
-    want = run()
-    monkeypatch.setattr(sim, "_GRAPHS", collections.OrderedDict())
-    monkeypatch.setattr(sim, "_captures", lambda *a, **k: True)
-    monkeypatch.setattr(sim._SlotGraphs, "capture", lambda self, step: None)
-    _bitwise(run(), want)
-    (entry,) = sim._GRAPHS.values()
-    assert entry.block == 256 and entry.slots is not None
-    assert set(sim._SPEED_OPERANDS) < set(entry.fixed) and "inv_rate_m" not in entry.fixed
+@contextlib.contextmanager
+def one_thread():
+    """Tiny tensors: intra-op threads only slow the slot loop down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _cell_equals(result, index, one, label):
+    for name, x, y in zip(one._fields, result, one):
+        x = x[index] if x.ndim > y.ndim else x      # per-call scalars stay
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("algo", BP_ALGOS)
+@pytest.mark.parametrize("case", ["uniform", "straggler_wave", "sweep"])
+def test_the_one_loop_over_draw_blocks_equals_the_looped_runs_on_the_cpu(algo, case):
+    """The slot loop on the CPU, every slot stepped eagerly from the block's
+    slot views: over two draw blocks, the last partial, every grid or sweep
+    cell equals its looped ``simulate`` run bit for bit, on the homogeneous
+    path, on one scenario's [M, 3] speeds and on a two-scenario sweep's
+    stacked speeds (computed from the loop's operands); no graph is held."""
+    pad = build.canonical_pad(SMALL)
+    with one_thread():
+        if case == "sweep":
+            names = ["slow_rack", "rack_outage"]
+            a_max = sim.sweep_grid(SMALL, SMALL_RATES, SMALL_CFG, SMALL_LOADS, names, pad,
+                                   device="cpu")[3]
+            res = sim.simulate_sweep(algo, SMALL, SMALL_RATES, SMALL_LOADS, 2, SMALL_CFG,
+                                     seed0=3, scenarios=names, pad=pad, device="cpu")[1]
+        else:
+            names, pad = [case], None
+            scen, cap = realize(case, SMALL, SMALL_RATES, SMALL_CFG.T, device="cpu")
+            lam = torch.tensor([l * cap for l in SMALL_LOADS])      # float32, as the grid's
+            a_max = SMALL_CFG.resolve_a_max(float(lam.max()), float(scen.lam_shape.max()))
+            res = sim.simulate_grid(algo, SMALL, SMALL_RATES, SMALL_LOADS, 2, SMALL_CFG,
+                                    seed0=3, scenario=case, device="cpu")
+        for s, name in enumerate(names):
+            for k in range(2):
+                for l, load in enumerate(SMALL_LOADS):
+                    one = sim.simulate(algo, SMALL, SMALL_RATES, load, 3 + k, SMALL_CFG,
+                                       scenario=name, pad=pad, a_max=a_max, device="cpu")
+                    cell = (s, k, l) if case == "sweep" else (k, l)
+                    _cell_equals(res, cell, one, (name, k, load))
+    assert not sim._GRAPHS
+
+
+def _source(algo, cfg, a_max=9, seed=4, lam=2.0):
+    lam_t = torch.full((cfg.T,), lam)
+    return sim.TorchDraws(torch.Generator().manual_seed(seed), SMALL, SMALL_RATES, cfg,
+                          sim._pod_for(algo, None), a_max, lam_t, sim._family(algo))
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod",
+                                  "jsq_maxweight_pod", "fcfs"])
+def test_a_grid_slot_view_is_the_cell_draws_with_full_bp_class_grid(algo):
+    """``GridDraws.view`` of a filled one-cell block is ``TorchDraws(t)`` of
+    that cell, lifted, at a block's first and last slot and past a block's
+    end; full BP's class grid is ``locality_class`` of the slot's replica
+    triples, and no other family's draws carry one."""
+    cfg = sim.SimConfig(T=300, warmup=0, s_max=16, route_mode="batched")
+    grid, one = sim.GridDraws([_source(algo, cfg)]), _source(algo, cfg)
+    assert grid.block == 256
+    for t0 in range(0, cfg.T, grid.block):
+        buf = grid.fill(t0)
+        assert buf.raw.shape == (min(grid.block, cfg.T - t0), 1)
+        for i in (0, buf.raw.shape[0] - 1):
+            got, want = grid.view(buf, i), one(t0 + i)
+            for name, x, y in zip(want._fields, got, want):
+                assert (x is None) == (y is None), name
+                assert x is None or torch.equal(x[0], y), (t0 + i, name)
+            full_bp = algo == "balanced_pandas"
+            assert (getattr(want, "cls", None) is not None) == full_bp
+            if full_bp:
+                assert torch.equal(want.cls, locality_class(SMALL, want.locals_))
+
+
+@pytest.mark.parametrize("algo", ["balanced_pandas", "balanced_pandas_pod",
+                                  "jsq_maxweight_pod", "fcfs"])
+def test_a_callers_draw_source_runs_the_loop_in_blocks_of_one_slot(algo):
+    """``simulate(draws=...)`` with the default source's own ``TorchDraws``
+    (one slot a call, full BP's class grid derived by it): the loop takes
+    it as blocks of one slot of one cell, and the result is the default
+    run's bit for bit."""
+    cfg = sim.SimConfig(T=300, warmup=75, s_max=16, route_mode="batched")
+    load = 0.7
+    lam = load * realize(None, SMALL, SMALL_RATES, cfg.T, device="cpu")[1]
+    a_max = cfg.resolve_a_max(lam)
+    with one_thread():
+        want = sim.simulate(algo, SMALL, SMALL_RATES, load, 4, cfg, a_max=a_max, device="cpu")
+        got = sim.simulate(algo, SMALL, SMALL_RATES, load, 4, cfg, a_max=a_max, device="cpu",
+                           draws=_source(algo, cfg, a_max, lam=lam))
+    _bitwise(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +270,17 @@ def _eager(monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(sim, "_captures", lambda *a, **k: False)
         yield
+
+
+def _strict(loop):
+    """``loop`` (the slot loop) with any host sync with the card an error."""
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return strict
 
 
 def _grid(dev, algo, seed0=0, cfg=CFG):
@@ -264,17 +330,9 @@ def test_route_commit_launches_once_a_slot(dev, fresh, algo):
 @pytest.mark.parametrize("algo", ["balanced_pandas_pod", "balanced_pandas"])
 def test_a_replayed_loop_never_syncs_with_the_host(dev, fresh, monkeypatch, algo):
     _grid(dev, algo)                # captures
-    loop = sim._replay_loop
-
-    def strict(*a, **k):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return loop(*a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    monkeypatch.setattr(sim, "_replay_loop", strict)
     with _eager(monkeypatch):
         want = _grid(dev, algo, seed0=7)
+    monkeypatch.setattr(sim, "_slot_loop", _strict(sim._slot_loop))
     _bitwise(_grid(dev, algo, seed0=7), want)
     assert len(fresh) == 1
 
@@ -323,6 +381,12 @@ def test_the_eager_paths_record_their_step_spans(dev, fresh, case):
 SCENS = ["slow_rack", "rack_outage", "straggler_wave"]
 
 
+def _holds_speed_operands(entry) -> bool:
+    """Off the homogeneous path the graphs hold the scenario's speed
+    operands and compute each slot's inverse rates from them."""
+    return set(sim._SPEED_OPERANDS) < set(entry.fixed) and "inv_rate_m" not in entry.fixed
+
+
 def _sweep(dev, algo, seed0=0, cfg=CFG, a_max=None):
     return sim.simulate_sweep(algo, CL, PAPER, LOADS, SEEDS, cfg, seed0=seed0,
                               scenarios=SCENS, a_max=a_max, device=dev)[1]
@@ -334,7 +398,7 @@ def test_captured_sweep_equals_the_eager_loop(dev, fresh, monkeypatch, algo):
     with _eager(monkeypatch):
         want = _sweep(dev, algo)
     got = _sweep(dev, algo)
-    assert len(fresh) == 1 and fresh[0].slots is not None
+    assert len(fresh) == 1 and _holds_speed_operands(fresh[0])
     assert fresh[0].block < CFG.T < 3 * fresh[0].block
     _bitwise(got, want)
     # a second call at new seeds realizes and stacks the scenarios anew and
@@ -356,7 +420,7 @@ def test_captured_scenario_grid_equals_the_eager_loop(dev, fresh, monkeypatch, a
         with _eager(monkeypatch):
             want = run(seed0)
         _bitwise(run(seed0), want)
-    assert len(fresh) == 1 and fresh[0].slots is not None
+    assert len(fresh) == 1 and _holds_speed_operands(fresh[0])
 
 
 @pytest.mark.gpu
@@ -373,17 +437,9 @@ def test_a_captured_sweep_launches_route_commit_once_a_slot(dev, fresh):
 @pytest.mark.gpu
 def test_a_replayed_sweep_never_syncs_with_the_host(dev, fresh, monkeypatch):
     _sweep(dev, "balanced_pandas_pod")          # captures
-    loop = sim._replay_loop
-
-    def strict(*a, **k):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return loop(*a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    monkeypatch.setattr(sim, "_replay_loop", strict)
     with _eager(monkeypatch):
         want = _sweep(dev, "balanced_pandas_pod", seed0=7)
+    monkeypatch.setattr(sim, "_slot_loop", _strict(sim._slot_loop))
     _bitwise(_sweep(dev, "balanced_pandas_pod", seed0=7), want)
     assert len(fresh) == 1
 

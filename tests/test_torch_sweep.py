@@ -295,7 +295,8 @@ def test_a_slot_of_many_cells_issues_the_ops_of_one(algo, monkeypatch):
         sources = [tsim._cell_draws(torch.Generator().manual_seed(k), CL_T, R_T, cfg, pod,
                                     a_max, l * 2.0, tbuild.scenario_row(stacked, 0), family)
                    for k in range(seeds) for l in LOADS]
-        draws = tsim.GridDraws(sources)(40)
+        grid = tsim.GridDraws(sources)
+        draws = grid.view(grid.fill(40), 0)
         N = len(sources)
         kind = {"bp": tsim.BPState, "sq": tsim.SQState, "fcfs": tsim.FCFSState}[family]
         speed = tbuild.speed_at(stacked, 40)[0]
